@@ -1,0 +1,77 @@
+"""HFL schedule — the paper's technique as a first-class framework feature.
+
+An ``HFLSchedule`` is the full output of the paper's pipeline: the
+association chi (Alg. 3), the iteration counts (a*, b*) (Alg. 2 / direct
+convex solve) and the derived round structure.  The FL runtime
+(``repro_torch.fl``) executes any schedule.
+
+Copied from the JAX package's ``repro/core/schedule.py``: ``HFLSchedule``
+and ``plan``.  ``plan_joint`` waits for the stochastic joint optimizer and
+``plan_from_roofline`` for an H100 roofline bridge (ROADMAP Queue 1 items
+10 and 15).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core import assoc as assoc_lib
+from repro_torch.core import delay, iteropt
+from repro_torch.core.problem import HFLProblem
+
+
+@dataclasses.dataclass
+class HFLSchedule:
+    """Everything the runtime needs to execute hierarchical FL."""
+
+    a: int                       # local iterations per edge round (eq. 2)
+    b: int                       # edge rounds per cloud round (eq. 7)
+    rounds: int                  # cloud rounds R(a,b,eps) (eq. 15)
+    assoc: np.ndarray            # (N, M) 0/1 UE-to-edge association
+    total_delay: float           # objective value R*T (eq. 13)
+    cloud_round_time: float      # T (eq. 34)
+    edge_round_time: np.ndarray  # tau_m (eq. 33)
+    problem: Optional[HFLProblem] = None
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_edges(self) -> int:
+        return self.assoc.shape[1]
+
+    @property
+    def num_ues(self) -> int:
+        return self.assoc.shape[0]
+
+    def groups(self):
+        """List of per-edge UE index arrays."""
+        return [np.flatnonzero(self.assoc[:, m]) for m in range(self.num_edges)]
+
+    def total_local_steps(self) -> int:
+        """Local GD steps each UE runs over the whole job: R * b * a."""
+        return self.rounds * self.b * self.a
+
+    def sync_points(self):
+        """(edge_every, cloud_every) in local-step units (Alg. 1 lines 9/14)."""
+        return self.a, self.a * self.b
+
+
+def plan(problem: HFLProblem, *, association: str = "proposed",
+         solver: str = "direct", seed: int = 0) -> HFLSchedule:
+    """End-to-end paper pipeline: Alg. 3 association, then sub-problem I."""
+    assoc = assoc_lib.STRATEGIES[association](problem, seed=seed)
+    sol = (iteropt.solve_direct if solver == "direct"
+           else iteropt.solve_dual)(problem, assoc)
+    bd = delay.objective_breakdown(problem, assoc, sol.a_int, sol.b_int)
+    return HFLSchedule(
+        a=sol.a_int, b=sol.b_int,
+        rounds=max(1, int(math.ceil(sol.rounds))),
+        assoc=assoc, total_delay=bd["total"],
+        cloud_round_time=bd["T"], edge_round_time=bd["tau"],
+        problem=problem,
+        meta={"association": association, "solver": solver,
+              "a_relaxed": sol.a, "b_relaxed": sol.b,
+              "theta": bd["theta"], "mu": bd["mu"]},
+    )
