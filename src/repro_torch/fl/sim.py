@@ -1,5 +1,6 @@
 """Simulation backend — Algorithm 1 with a simulated wall clock, ported
-from the JAX package's ``repro/fl/sim.py`` (synchronous mode, one device).
+from the JAX package's ``repro/fl/sim.py`` (sync and async modes, one
+device).
 
 Executes the exact 3-layer schedule on stacked UE replicas while the CLOCK
 advances according to the paper's delay model:
@@ -16,6 +17,17 @@ buffer (``repro_torch.fl.flatten``) that stays on the device for the whole
 run.  Local GD updates it in place through per-leaf views; each edge
 (eq. 6) and cloud (eq. 10) event is one kernel launch that writes a fresh
 buffer, which then replaces the old one.
+
+Async mode (``mode="async"``, beyond the paper): the cloud barrier of
+eq. 34 is dropped.  ``repro_torch.core.events`` simulates each edge's
+cycle ``b * tau_m + t_mc`` on its own clock with SSP staleness gating
+(``max_staleness`` cycles of lead, 0 = the synchronous barrier), and the
+run REPLAYS that event trace: a departure wave re-seeds the departing
+edges' rows from the cloud model and runs their b-iteration cycle, and
+each cloud update merges the arrived edges with weights decayed by
+``staleness_decay ** version_lag`` (``flat_staleness_merge``).  At
+``max_staleness=0`` the trajectory is the synchronous one to float
+tolerance.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.core import delay
 from repro_torch.core.schedule import HFLSchedule
 from repro_torch.device import resolve_device
 from repro_torch.fl import aggregate, clients
@@ -40,6 +53,7 @@ class SimResult:
     train_loss: np.ndarray     # (R,)
     schedule: HFLSchedule
     final_params: dict
+    timeline: object = None    # core.events.AsyncTimeline (async mode only)
 
 
 def _not_ported(what: str, item: str):
@@ -57,16 +71,22 @@ class HFLSimulator:
     def __init__(self, schedule: HFLSchedule, loss_fn: Callable,
                  init_params: dict, ue_data: List[dict], *,
                  lr: float = 0.05, solver: str = "gd",
-                 samples_per_ue: Optional[int] = None, seed: int = 0,
-                 mode: str = "sync", mesh=None, delay_model=None,
+                 dane_mu: float = 0.1, samples_per_ue: Optional[int] = None,
+                 seed: int = 0, mode: str = "sync",
+                 max_staleness: Optional[int] = 0,
+                 staleness_decay: float = 0.9, mesh=None, delay_model=None,
                  fault_model=None, sampler=None, device=None):
-        if mode == "async":
-            raise _not_ported("mode='async'", "item 7")
-        if mode != "sync":
+        if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
-        if solver == "dane":
-            raise _not_ported("solver='dane'", "item 5")
-        if solver != "gd":
+        if max_staleness is None:
+            # a jointly planned schedule carries its own staleness bound
+            max_staleness = int(schedule.meta.get("max_staleness", 0))
+        if mode == "async" and solver != "gd":
+            raise ValueError("mode='async' supports solver='gd' only (DANE's "
+                             "global gradient assumes a synchronized fleet)")
+        if max_staleness < 0:
+            raise ValueError("max_staleness must be >= 0")
+        if solver not in ("gd", "dane"):
             raise ValueError(f"solver must be 'gd' or 'dane', got {solver!r}")
         if mesh is not None:
             raise _not_ported("mesh=", "item 13")
@@ -79,6 +99,10 @@ class HFLSimulator:
         self.device = resolve_device(device)
         self.schedule = schedule
         self.loss_fn = loss_fn
+        self.solver = solver
+        self.mode = mode
+        self.max_staleness = int(max_staleness)
+        self.staleness_decay = float(staleness_decay)
         n = schedule.num_ues
         if len(ue_data) != n:
             raise ValueError(f"{len(ue_data)} UE datasets for {n} UEs")
@@ -117,6 +141,9 @@ class HFLSimulator:
                              f"{sorted(set(map(str, self._layout.dtypes)))}")
         self._flat = self._layout.ravel(stacked)
         self._local_gd = clients.gd_local_steps(loss_fn, schedule.a, lr)
+        self._local_dane = clients.dane_local_steps(loss_fn, schedule.a, lr,
+                                                    mu_prox=dane_mu)
+        self._w_total = float(self.weights.sum())
         self._per_ue_loss = vmap(lambda p, bb: loss_fn(p, bb)[0],
                                  in_dims=(None, 0))
 
@@ -127,16 +154,38 @@ class HFLSimulator:
         """Stacked UE replicas, unravelled from the flat buffer."""
         return self._layout.unravel(self._flat)
 
-    def _cloud_round(self) -> None:
+    def _edge_rounds(self, flat: torch.Tensor) -> torch.Tensor:
+        """b edge rounds on every row of ``flat``: a local steps, written
+        in place into ``flat`` through the views that unravel returns, then
+        the eq. 6 edge aggregation."""
         s = self.schedule
-        flat = self._flat
         for _ in range(s.b):
-            # a local GD steps, written in place into `flat` through the
-            # views that unravel returns
-            self._local_gd(self._layout.unravel(flat), self.batches)
+            p = self._layout.unravel(flat)
+            if self.solver == "dane":
+                g_bar = clients.global_gradient(self.loss_fn, p,
+                                                self.batches, self.weights)
+                self._local_dane(p, self.batches, g_bar)
+            else:
+                self._local_gd(p, self.batches)
             flat = aggregate.flat_edge_aggregate(flat, self.weights,
                                                  self.group_ids, s.num_edges)
-        self._flat = aggregate.flat_cloud_aggregate(flat, self.weights)
+        return flat
+
+    def _cloud_round(self) -> None:
+        self._flat = aggregate.flat_cloud_aggregate(
+            self._edge_rounds(self._flat), self.weights)
+
+    def _depart_cycle(self, g: torch.Tensor, mask: torch.Tensor) -> None:
+        """Re-seed the departing rows (``mask``) from the cloud vector
+        ``g``, run the b-iteration edge cycle (Alg. 1 lines 4-9) and commit
+        ONLY the masked rows; mid-flight edges' rows pass through.  As in
+        the JAX package the wave trains the WHOLE buffer and drops the
+        unmasked rows, so a wave costs a sync round's training.  The cycle
+        runs on the fresh seeded copy, never on ``self._flat``: local GD
+        writes in place, and the rows of edges in flight must not move."""
+        seeded = torch.where(mask[:, None], g[None, :], self._flat)
+        self._flat = torch.where(mask[:, None], self._edge_rounds(seeded),
+                                 self._flat)
 
     def global_params(self) -> dict:
         """The cloud model: weighted mean over UE replicas (eq. 10)."""
@@ -148,9 +197,20 @@ class HFLSimulator:
         w = self.weights / self.weights.sum()
         return (w * self._per_ue_loss(gp, self.batches)).sum()
 
+    def _evaluate(self, gp, test: dict):
+        """(test accuracy, test loss, train loss) of the global model."""
+        with torch.no_grad():
+            loss, mets = self.loss_fn(gp, test)
+            trl = self._train_loss(gp)
+        return float(mets.get("acc", float("nan"))), float(loss), float(trl)
+
     def run(self, test_batch: dict, rounds: Optional[int] = None,
             eval_every: int = 1, verbose: bool = False) -> SimResult:
-        """Execute ``rounds`` synchronous cloud rounds."""
+        """Execute ``rounds`` cloud rounds (sync) or the equivalent async
+        delivery quota (``rounds * M_active`` edge merges, mode='async';
+        ``eval_every`` then counts cloud updates)."""
+        if self.mode == "async":
+            return self._run_async(test_batch, rounds, eval_every, verbose)
         sched = self.schedule
         rounds = rounds or sched.rounds
         round_times = np.full(rounds, sched.cloud_round_time)  # eq. (34)
@@ -162,14 +222,11 @@ class HFLSimulator:
             self._cloud_round()
             clock += float(round_times[r])
             if (r + 1) % eval_every == 0 or r == rounds - 1:
-                with torch.no_grad():
-                    gp = self.global_params()
-                    loss, mets = self.loss_fn(gp, test)
-                    trl = self._train_loss(gp)
+                acc, loss, trl = self._evaluate(self.global_params(), test)
                 times.append(clock)
-                accs.append(float(mets.get("acc", float("nan"))))
-                tlosses.append(float(loss))
-                trlosses.append(float(trl))
+                accs.append(acc)
+                tlosses.append(loss)
+                trlosses.append(trl)
                 if verbose:
                     print(f"round {r+1:3d}/{rounds}  t={clock:9.2f}s  "
                           f"acc={accs[-1]:.4f}  loss={tlosses[-1]:.4f}")
@@ -177,6 +234,144 @@ class HFLSimulator:
                          test_loss=np.array(tlosses),
                          train_loss=np.array(trlosses),
                          schedule=sched, final_params=self.global_params())
+
+    # ------------------------------------------------------------------
+    # Replay hooks (mode='async'): the event-replay primitives
+    # ``_run_async`` is built from, public so a driver can advance the same
+    # model state one event at a time, checkpoint it and resume.
+    # ------------------------------------------------------------------
+
+    def cloud_vector(self) -> torch.Tensor:
+        """(F,) fp32 cloud model: the weighted mean of the flat buffer."""
+        w = self.weights.cpu().numpy()
+        return torch.as_tensor(w / w.sum(), dtype=torch.float32,
+                               device=self.device) @ self._flat
+
+    def place_cloud_vector(self, g) -> torch.Tensor:
+        """A cloud vector (array or tensor) as fp32 on the simulator's
+        device."""
+        if not torch.is_tensor(g):
+            g = np.array(g, np.float32)       # a copy the caller cannot move
+        return torch.as_tensor(g, dtype=torch.float32, device=self.device)
+
+    def replay_departure(self, g, mask, ue_ok=None,
+                         agg_weights=None) -> None:
+        """One departure wave: re-seed the masked rows from ``g``, run
+        their b-iteration edge cycle and commit them into the flat buffer.
+        ``mask`` is an (N,) bool over rows (the departing cohorts)."""
+        if self.mode != "async":
+            raise RuntimeError("replay_departure requires mode='async'")
+        if ue_ok is not None or agg_weights is not None:
+            raise _not_ported("replay_departure(ue_ok=, agg_weights=)",
+                              "items 9 and 12")
+        self._depart_cycle(self.place_cloud_vector(g),
+                           torch.as_tensor(mask, dtype=torch.bool,
+                                           device=self.device))
+
+    def replay_merge(self, g, decay) -> torch.Tensor:
+        """Staleness-weighted cloud merge of the arrived edges.  ``decay``
+        is (M,) float64, ``staleness_decay ** lag`` for arrived edges and
+        0 elsewhere; returns the updated cloud vector."""
+        if self.mode != "async":
+            raise RuntimeError("replay_merge requires mode='async'")
+        gids = self.group_ids.cpu().numpy()
+        eff = (self.weights.cpu().numpy() * np.asarray(decay)[gids]
+               ).astype(np.float32)
+        return aggregate.flat_staleness_merge(
+            self.place_cloud_vector(g), self._flat, eff, self._w_total)
+
+    def edge_mean_row(self, m: int) -> torch.Tensor:
+        """(F,) fp32: edge ``m``'s model right after its cycle's eq. 6
+        aggregation (every member row holds the edge mean)."""
+        idx = int(np.flatnonzero(self.group_ids.cpu().numpy() == int(m))[0])
+        return self._flat[idx]
+
+    def edge_mass(self, m: int) -> float:
+        """Total aggregation weight of edge ``m``'s cohort (float64)."""
+        w = self.weights.cpu().numpy().astype(np.float64)
+        return float(w[self.group_ids.cpu().numpy() == int(m)].sum())
+
+    def hot_rows(self, idx) -> np.ndarray:
+        """Host copy of the given flat-buffer rows: (len(idx), F) fp32."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        return self._flat[idx].cpu().numpy()
+
+    def global_from_vector(self, g) -> dict:
+        """Unravel a cloud vector into the global parameter dict."""
+        return self._layout.unravel_single(self.place_cloud_vector(g))
+
+    def flat_state(self) -> np.ndarray:
+        """Host copy of the flat buffer (checkpoint payload)."""
+        return self._flat.cpu().numpy().copy()
+
+    def set_flat_state(self, flat) -> None:
+        """Restore the flat buffer from a host array, such as the JAX
+        package's ``HFLSimulator.flat_state()``."""
+        flat = np.array(flat, np.float32)    # local GD writes in place
+        if flat.shape != tuple(self._flat.shape):
+            raise ValueError(f"flat buffer shape {flat.shape} does not "
+                             f"match this simulator's layout "
+                             f"{tuple(self._flat.shape)}")
+        self._flat = torch.as_tensor(flat, device=self.device)
+
+    def _run_async(self, test_batch: dict, rounds: Optional[int],
+                   eval_every: int, verbose: bool) -> SimResult:
+        """Replay the event-driven async timeline (see module docstring).
+
+        The clock comes from ``core.delay.async_completion`` (per-edge
+        cycles ``b tau_m + t_mc``, SSP-gated); every run of departures
+        before a cloud update is one wave (``replay_departure``), every
+        cloud update one staleness-weighted merge (``replay_merge``) and an
+        eval point (``eval_every`` counts updates)."""
+        sched = self.schedule
+        if sched.problem is None:
+            raise ValueError("mode='async' needs schedule.problem to derive "
+                             "per-edge cycle times (eqs. 8/33)")
+        rounds = rounds or sched.rounds
+        stats = delay.async_completion(
+            sched.problem, sched.assoc, sched.a, sched.b, rounds=rounds,
+            max_staleness=self.max_staleness)
+        tl = stats["timeline"]
+        active = np.asarray(stats["active_edges"])
+        gids = self.group_ids.cpu().numpy()
+        test = {k: torch.as_tensor(v, device=self.device)
+                for k, v in test_batch.items()}
+
+        g = self.cloud_vector()
+        num_updates = len(tl.updates)
+        pending = np.zeros(gids.shape[0], dtype=bool)
+        times, accs, tlosses, trlosses = [], [], [], []
+        updates_seen = 0
+        for kind, ev in tl.trace:
+            if kind == "depart":
+                pending |= gids == int(active[ev.edge])
+                continue
+            if pending.any():
+                self.replay_departure(g, pending)
+                pending = np.zeros_like(pending)
+            decay = np.zeros(sched.num_edges)
+            for e, _, s in ev.merges:
+                decay[int(active[e])] = self.staleness_decay ** s
+            g = self.replay_merge(g, decay)
+            updates_seen += 1
+            if updates_seen % eval_every == 0 or updates_seen == num_updates:
+                acc, loss, trl = self._evaluate(self.global_from_vector(g),
+                                                test)
+                times.append(ev.t)
+                accs.append(acc)
+                tlosses.append(loss)
+                trlosses.append(trl)
+                if verbose:
+                    print(f"update {updates_seen:4d}/{num_updates}  "
+                          f"t={ev.t:9.2f}s  acc={accs[-1]:.4f}  "
+                          f"loss={tlosses[-1]:.4f}")
+        # leave every row equal to the cloud model, so ``global_params``
+        # and a further run see the merged state
+        self._flat = g[None, :].expand(self._flat.shape).contiguous()
+        return SimResult(times=np.array(times), test_acc=np.array(accs),
+                         test_loss=np.array(tlosses),
+                         train_loss=np.array(trlosses), schedule=sched,
+                         final_params=self.global_params(), timeline=tl)
 
 
 def _stack(params: dict, n: int, device) -> dict:

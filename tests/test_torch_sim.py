@@ -126,12 +126,71 @@ def _small_sim_args():
 
 
 @pytest.mark.parametrize("kw", [
-    {"mode": "async"}, {"solver": "dane"}, {"mesh": object()},
+    {"mode": "async", "delay_model": object()},
+    {"solver": "dane", "sampler": object()}, {"mesh": object()},
     {"delay_model": object()}, {"fault_model": object()},
     {"sampler": object()}])
 def test_unported_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HFLSimulator(*_small_sim_args(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mu", [0.1, 0.5])
+def test_dane_round_matches_reference(mu):
+    """``solver="dane"`` on the quickstart's logreg setup: one cloud round
+    in both packages, losses and the model within 1e-5."""
+    jsch, tsch = j_plan(JProblem(**QUICKSTART)), t_plan(TProblem(**QUICKSTART))
+    train = synthetic.logreg_data(seed=0, n=800, dim=12, num_classes=4)
+    test = synthetic.logreg_data(seed=1, n=200, dim=12, num_classes=4)
+    ue_data = _ue_data(train, 800, tsch.problem.samples)
+    init = jax.tree.map(np.asarray,
+                        j_lenet.logreg_init(jax.random.PRNGKey(0), 12, 4))
+    kw = dict(lr=0.02, solver="dane", dane_mu=mu)
+    jres = JSim(jsch, lambda p, b: j_lenet.logreg_loss(p, b, l2=1e-3),
+                init, ue_data, **kw).run(test, rounds=1)
+    tres = HFLSimulator(tsch, lambda p, b: t_lenet.logreg_loss(p, b, l2=1e-3),
+                        from_jax_params(init, device="cpu"), ue_data,
+                        device="cpu", **kw).run(test, rounds=1)
+    np.testing.assert_array_equal(tres.times, jres.times)
+    np.testing.assert_allclose(tres.test_loss, jres.test_loss, rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(tres.train_loss, jres.train_loss, rtol=0,
+                               atol=1e-5)
+    for t, j in zip(tree_leaves(tres.final_params),
+                    jax.tree.leaves(jres.final_params)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=1e-5)
+
+
+def test_dane_local_steps_and_global_gradient_match_reference():
+    """The DANE solver's pieces on stacked logreg params that differ per
+    UE: the global gradient and ``a`` = 4 prox-regularised steps, 1e-5."""
+    from repro.fl import clients as j_clients
+    from repro_torch.fl import clients as t_clients
+    rng = np.random.default_rng(2)
+    n = 5
+    params = {"w": rng.normal(0, 0.3, (n, 6, 3)).astype(np.float32),
+              "b": rng.normal(0, 0.3, (n, 3)).astype(np.float32)}
+    batches = {"images": rng.normal(0, 1, (n, 7, 6)).astype(np.float32),
+               "labels": rng.integers(0, 3, (n, 7)).astype(np.int32)}
+    w = rng.uniform(50, 120, n).astype(np.float32)
+    j_loss = lambda p, b: j_lenet.logreg_loss(p, b, l2=1e-3)  # noqa: E731
+    t_loss = lambda p, b: t_lenet.logreg_loss(p, b, l2=1e-3)  # noqa: E731
+    jp = jax.tree.map(jax.numpy.asarray, params)
+    jb = jax.tree.map(jax.numpy.asarray, batches)
+    j_gbar = j_clients.global_gradient(j_loss, jp, jb, jax.numpy.asarray(w))
+    j_out = jax.vmap(lambda p, b: j_clients.dane_local_steps(
+        j_loss, 4, 0.05, mu_prox=0.3)(p, b, j_gbar))(jp, jb)
+    tp = from_jax_params(params, device="cpu")
+    tb = {k: torch.as_tensor(v) for k, v in batches.items()}
+    t_gbar = t_clients.global_gradient(t_loss, tp, tb, torch.from_numpy(w))
+    for t, j in zip(tree_leaves(t_gbar), jax.tree.leaves(j_gbar)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5)
+    t_out = t_clients.dane_local_steps(t_loss, 4, 0.05, mu_prox=0.3)(
+        tp, tb, t_gbar)
+    assert t_out is tp                      # in place, as gd_local_steps
+    for t, j in zip(tree_leaves(t_out), jax.tree.leaves(j_out)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5)
 
 
 def test_non_fp32_params_are_rejected():
