@@ -10,7 +10,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. Kernels against their plain PyTorch versions on the card, at the
    paths' shapes and at the edge cases; each kernel timed (CUDA events,
    median of 100 launches, L2 flushed before each) beside its plain
-   version, one PyTorch library call and its bound.
+   version, one PyTorch library call (where one computes the same
+   function) and its bound.
 3. The main path at full width: ``plan()`` on the paper's 5-edge,
    100-UE topology, then synchronous Algorithm 1 on full LeNet
    (``HFLSimulator(device="cuda")``) for 2 cloud rounds; each kernel's
@@ -26,13 +27,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    folded in 8,192-row chunks made on the card (the 4 GiB buffer never
    exists), one ``segment_sum`` launch per chunk, against a float64
    accumulation of the same chunks.
-7. Kernel records as JSON, then the result line.
+7. Serving at full width: RecurrentGemma-9B (38 layers, 8,532,381,696
+   fp32 parameters from seed 0) through ``repro_torch.launch.serve``,
+   B=2, a 4,096-token prompt (twice the 2,048 window) and 32 greedy
+   tokens; then the same model step by step: 12 ``flash_attention`` and
+   26 ``rglru_scan`` launches in prefill, none in decode; a profiled
+   prefill and decode step; the kernel route against the plain route
+   (``impl="naive"``) on prefill and teacher-forced decode logits, within
+   a multiple of the plain route's spread under a 1e-7 perturbation of
+   the embedding; one pattern cycle (3 layers) at B=1, S=2,560 on the card
+   against the CPU.
+8. Kernel records as JSON, then the result line.
 
 Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
 ``nvidia-smi``.  Without a card it exits 1 before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -46,15 +58,21 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.lenet_mnist import LeNetConfig  # noqa: E402
 from repro_torch.core import HFLProblem, plan  # noqa: E402
-from repro_torch.data import size_partition, synthetic_mnist  # noqa: E402
+from repro_torch.data import (TokenStream, size_partition,  # noqa: E402
+                              synthetic_mnist)
 from repro_torch.fl.aggregate import StreamingEdgeAccumulator  # noqa: E402
 from repro_torch.fl.flatten import tree_leaves  # noqa: E402
 from repro_torch.fl.sim import HFLSimulator  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
+from repro_torch.kernels import rglru_scan as rs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.lenet import lenet_init, lenet_loss  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 (non-tensor-core)
 # rate, for the bound of each kernel.
@@ -85,6 +103,19 @@ STREAM_SEED = 7
 STREAM_RTOL = 1e-5           # of the largest |mean|: fp32 chunk sums added
                              # 128 times, against a float64 accumulation
 
+# Phase 7: full-width RecurrentGemma-9B serving.
+SERVE_ARCH = "recurrentgemma-9b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 32
+SERVE_PARAMS = 8_532_381_696
+CPU_BATCH, CPU_PROMPT = 1, 2560   # one pattern cycle, card against the CPU
+# The kernel route against the plain route (and the card against the CPU)
+# is held, as phase 4 holds LeNet, to SENSITIVITY_FACTOR times the plain
+# route's own spread when the embedding moves by 1e-7 relative
+# (SENSITIVITY_NOISE), measured in the same run.  The two routes differ
+# only in the order of their sums; a masking or indexing fault moves the
+# logits by percents of their scale, orders of magnitude past that.
+ATTN_ATOL = 2e-5             # tests/test_kernels.py's attention tolerance
+
 KERNELS = {
     "segment_aggregate": dict(
         source="src/repro_torch/kernels/csrc/segment_aggregate.cu",
@@ -95,7 +126,31 @@ KERNELS = {
     "segment_sum": dict(
         source="src/repro_torch/kernels/csrc/segment_sum.cu",
         replaces="src/repro/kernels/hier_aggregate.py:263"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:89"),
+    "rglru_scan": dict(
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:41"),
 }
+COUNTERS = (ha, fa, rs)
+
+
+def reset_counts() -> None:
+    for mod in COUNTERS:
+        mod.reset_launch_counts()
+
+
+def counts() -> dict:
+    out = {}
+    for mod in COUNTERS:
+        out.update(mod.launch_counts)
+    return out
+
+
+def expect(**launched) -> dict:
+    """Every kernel's count: ``launched`` where named, else 0."""
+    return {name: launched.get(name, 0) for name in KERNELS}
 
 
 def check(ok: bool, what: str) -> None:
@@ -372,6 +427,171 @@ def time_slice_rule(x, w, g, m) -> None:
         + f" (the rule picks {chosen})")
 
 
+# B, Sq, Sk, H, K, hd, causal, window: tests/test_kernels.py's ATTN_CASES,
+# then MQA at head_dim 256 under a window, ragged Sq < Sk, a first key tile
+# fully masked for most rows of a query tile, two non-causal cases, and the
+# serving shape of phase 7.
+ATTN_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 1, 256, True,
+                2048)
+ATTN_CASES = [
+    (2, 128, 128, 8, 4, 64, True, 0),
+    (1, 256, 256, 4, 4, 32, True, 64),
+    (2, 100, 100, 8, 2, 64, True, 0),
+    (1, 1, 384, 8, 8, 64, True, 0),
+    (1, 1, 250, 4, 2, 32, True, 0),
+    (1, 1, 512, 4, 4, 64, True, 128),
+    (2, 64, 64, 8, 1, 128, True, 0),
+    (1, 192, 192, 6, 3, 32, True, 48),
+    (1, 300, 300, 16, 1, 256, True, 128),
+    (2, 77, 333, 4, 2, 32, True, 0),
+    (1, 256, 256, 4, 1, 64, True, 40),
+    (2, 200, 200, 8, 2, 64, False, 0),
+    (1, 70, 300, 4, 1, 100, False, 0),
+    ATTN_SERVING,
+]
+# B, S, D: tests/test_kernels.py's RGLRU_CASES, then the serving shape
+SCAN_SERVING = (SERVE_BATCH, SERVE_PROMPT, 4096)
+SCAN_CASES = [(2, 64, 128), (1, 300, 96), (3, 17, 8), (1, 512, 256),
+              SCAN_SERVING]
+SCAN_RTOL = 1e-5             # of the largest |h|: chunked sequential kernel
+                             # against the plain log-depth scan
+
+
+def attn_inputs(case, dtype=torch.float32):
+    B, Sq, Sk, H, K, hd = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(Sq * 7 + Sk + hd)
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                 for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd)))
+
+
+def check_attention_against_plain() -> float:
+    """``flash_attention`` on each case against its plain version (fp32
+    within ATTN_ATOL; one bf16 case within 2 bf16 ulps of the largest
+    value); returns the largest fp32 absolute error."""
+    worst = 0.0
+    for case in ATTN_CASES + [(2, 128, 128, 8, 4, 64, True, 0, "bf16")]:
+        causal, window = case[6], case[7]
+        bf16 = case[-1] == "bf16"
+        q, k, v = attn_inputs(case, torch.bfloat16 if bf16 else torch.float32)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(out.shape == q.shape and out.dtype == q.dtype,
+              f"flash_attention {case}: dtype/shape")
+        check(bool(torch.isfinite(out).all()), f"flash_attention {case}: "
+              "finite")
+        err = _max_err(out.float(), ref.float())
+        scale = float(ref.float().abs().max())
+        tol = 2 * 2 ** -8 * scale if bf16 else ATTN_ATOL
+        check(err <= tol, f"flash_attention {case}: max|err| {err:.3e} > "
+              f"{tol:.3e}")
+        if not bf16:
+            worst = max(worst, err)
+        print(f"  {'flash_attention':17s} {'-'.join(map(str, case)):32s} "
+              f"max|err| {err:.3e} (scale {scale:.3e})")
+    return worst
+
+
+def scan_inputs(case):
+    gen = torch.Generator(device="cuda").manual_seed(sum(case))
+    a = torch.rand(case, generator=gen, device="cuda") * 0.299 + 0.7
+    return a, torch.randn(case, generator=gen, device="cuda")
+
+
+def check_scan_against_plain() -> float:
+    """``rglru_scan`` on each case against its plain version, within
+    SCAN_RTOL of the largest |h|, and bit for bit between two launches;
+    returns the largest absolute error."""
+    worst = 0.0
+    for case in SCAN_CASES:
+        a, b = scan_inputs(case)
+        out = rs.rglru_scan(a, b)
+        again = rs.rglru_scan(a, b)
+        ref = rs.rglru_scan_plain(a, b)
+        torch.cuda.synchronize()
+        check(out.shape == a.shape and out.dtype == torch.float32,
+              f"rglru_scan {case}: dtype/shape")
+        check(bool(torch.isfinite(out).all()), f"rglru_scan {case}: finite")
+        check(torch.equal(out, again), f"rglru_scan {case}: two launches "
+              "differ")
+        err = _max_err(out, ref)
+        scale = float(ref.abs().max())
+        check(err <= SCAN_RTOL * scale, f"rglru_scan {case}: max|err| "
+              f"{err:.3e} > {SCAN_RTOL} x {scale:.3e}")
+        worst = max(worst, err)
+        print(f"  {'rglru_scan':17s} {'-'.join(map(str, case)):32s} "
+              f"max|err| {err:.3e} (scale {scale:.3e}; "
+              f"{rs.scan_chunks(*case)} chunks)")
+    return worst
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_attention() -> dict:
+    """``flash_attention`` at the serving shape, its plain version and the
+    library yardstick (``scaled_dot_product_attention`` with the same
+    boolean mask, the KV head expanded), and its bound from the unmasked
+    (query, key) pairs of this shape."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    B, S, _, H, K, hd, causal, window = ATTN_SERVING
+    q, k, v = attn_inputs(ATTN_SERVING)
+    mask = fa.attention_mask(S, S, causal, window, "cuda")
+    qt, kt, vt = (t.transpose(1, 2).expand(B, H, -1, hd) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    lib_err = _max_err(library(), ref)
+    print(f"  {'flash_attention':17s} scaled_dot_product_attention vs plain "
+          f"max|err| {lib_err:.3e}")
+    check(lib_err <= 1e-3, "scaled_dot_product_attention computes the "
+          "same function")
+    del ref
+    pairs = int(mask.sum()) * B * H
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    r = dict(ms=time_ms(lambda: fa.flash_attention(
+                 q, k, v, causal=causal, window=window), flush, 10, 2),
+             plain_ms=time_ms(lambda: fa.flash_attention_plain(
+                 q, k, v, causal=causal, window=window), flush, 5, 1),
+             library_ms=time_ms(library, flush, 10, 2),
+             **bound(nbytes, 4 * hd * pairs))
+    print(f"  {'flash_attention':17s} {'-'.join(map(str, ATTN_SERVING))}: "
+          f"kernel {r['ms']:.3f} ms   plain {r['plain_ms']:.3f} ms   sdpa "
+          f"{r['library_ms']:.3f} ms   bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}: {pairs} unmasked pairs, {nbytes} B)")
+    return r
+
+
+def time_scan() -> dict:
+    """``rglru_scan`` at the serving shape with the chunk count its rule
+    picks, one chunk and twice the rule's count, its plain version, and
+    its bound.  No single PyTorch call computes the recurrence."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    a, b = scan_inputs(SCAN_SERVING)
+    chosen = rs.scan_chunks(*SCAN_SERVING)
+    chunked = []
+    for c in (1, chosen, 2 * chosen):
+        with mock.patch.object(rs, "scan_chunks", lambda *_, c=c: c):
+            chunked.append((c, time_ms(lambda: rs.rglru_scan(a, b), flush)))
+    r = dict(ms=chunked[1][1],
+             plain_ms=time_ms(lambda: rs.rglru_scan_plain(a, b), flush, 20),
+             library_ms=None, **bound(3 * 4 * a.numel(), 2 * a.numel()))
+    print(f"  {'rglru_scan':17s} {'-'.join(map(str, SCAN_SERVING))}: "
+          f"kernel {r['ms'] * 1e3:.2f} us   plain {r['plain_ms'] * 1e3:.2f} "
+          f"us   bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); "
+          "chunks: " + ", ".join(f"{c} -> {t * 1e3:.2f} us"
+                                 for c, t in chunked)
+          + f" (the rule picks {chosen})")
+    return r
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4
 # ---------------------------------------------------------------------------
@@ -413,17 +633,17 @@ def phase_main_path(sch, plan_s, ue_data, test):
           f"{SAMPLES_PER_UE} samples per UE; {rounds} cloud rounds "
           f"(a*b* = {sch.a * sch.b} GD steps each)")
     torch.cuda.synchronize()
-    ha.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = sim.run(test, rounds=rounds, verbose=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(ha.launch_counts)
+    launches = counts()
     print(f"main path: {run_s:.3f} s for {rounds} cloud rounds "
           f"({run_s / rounds:.3f} s per round, first-call warm-up included)")
     print(f"launches during the main path: {launches}")
-    check(launches == {"segment_aggregate": sch.b * rounds,
-                       "cloud_aggregate": rounds, "segment_sum": 0},
+    check(launches == expect(segment_aggregate=sch.b * rounds,
+                             cloud_aggregate=rounds),
           f"launch counts {launches} != b*rounds={sch.b * rounds}, "
           f"rounds={rounds}")
     check(bool(np.isfinite(res.test_loss).all()
@@ -438,25 +658,37 @@ def phase_main_path(sch, plan_s, ue_data, test):
     return launches
 
 
-def profile_round(sim, test, top: int = 8) -> None:
-    """Where a warm cloud round's device time goes (``torch.profiler``):
-    device-busy share of the wall time, the aggregation kernels' share,
-    and the kernels that take the most device time."""
+def device_profile(fn):
+    """Run ``fn`` once under ``torch.profiler``; returns the wall time in
+    us and the device kernels that took time (``key_averages`` entries)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        sim.run(test, rounds=1)
+        fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    return wall_us, [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0]
+
+
+def print_top(kernels, top: int) -> None:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
+def profile_round(sim, test, top: int = 8) -> None:
+    """Where a warm cloud round's device time goes (``torch.profiler``):
+    device-busy share of the wall time, the aggregation kernels' share,
+    and the kernels that take the most device time."""
+    wall_us, kernels = device_profile(lambda: sim.run(test, rounds=1))
     if not kernels:
         print("profiled round: the profiler recorded no device time")
         return
+    busy_us = sum(e.self_device_time_total for e in kernels)
     agg_us = sum(e.self_device_time_total for e in kernels
                  if "aggregate_kernel" in e.key)
     print(f"profiled round: {wall_us / 1e6:.3f} s wall (profiler on), "
@@ -464,9 +696,7 @@ def profile_round(sim, test, top: int = 8) -> None:
           f"aggregation kernels {agg_us / 1e3:.3f} ms = "
           f"{agg_us / busy_us:.2%} of device time; "
           f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-              f"{e.key[:90]}")
+    print_top(kernels, top)
 
 
 def phase_card_vs_cpu(sch, ue_data, test):
@@ -518,20 +748,19 @@ def phase_async(sch, ue_data, test, card_sync, spread) -> None:
     sim = make_sim(sch, ue_data, "cuda", mode="async",
                    max_staleness=ASYNC_STALENESS)
     torch.cuda.synchronize()
-    ha.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = sim.run(test, rounds=ROUNDS, verbose=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(ha.launch_counts)
+    launches = counts()
     tl = res.timeline
     waves = departure_waves(tl)
     updates = len(tl.updates)
     print(f"async path: max_staleness={ASYNC_STALENESS}, {ROUNDS} rounds' "
           f"quota = {updates} cloud updates, {waves} departure waves")
     print(f"launches during the async path: {launches}")
-    check(launches == {"segment_aggregate": sch.b * waves,
-                       "cloud_aggregate": 0, "segment_sum": 0},
+    check(launches == expect(segment_aggregate=sch.b * waves),
           f"launch counts {launches} != b*waves={sch.b * waves}, 0, 0")
     check(bool(np.isfinite(res.test_loss).all()
                and np.isfinite(res.train_loss).all()), "async: finite losses")
@@ -572,7 +801,7 @@ def phase_streaming() -> int:
     acc = StreamingEdgeAccumulator(m, f, device="cuda")
     starts = range(0, n, chunk)
     torch.cuda.synchronize()
-    ha.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     for i, start in enumerate(starts):
         stop = min(start + chunk, n)
@@ -581,14 +810,13 @@ def phase_streaming() -> int:
     means = acc.edge_means()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ha.launch_counts)
+    launches = counts()
     print(f"streaming: {n} rows x {f} fp32 in {len(starts)} chunks of "
           f"{chunk}, M={m}: {wall:.3f} s, {n / wall:.4g} rows/s (chunk "
           f"generation included); resident {acc.resident_bytes()} B, "
           f"chunk {chunk * f * 4} B, full buffer avoided {n * f * 4} B")
     print(f"launches during the streaming path: {launches}")
-    check(launches == {"segment_aggregate": 0, "cloud_aggregate": 0,
-                       "segment_sum": len(starts)},
+    check(launches == expect(segment_sum=len(starts)),
           f"launch counts {launches} != 0, 0, {len(starts)}")
     check(acc.resident_bytes() == m * f * 4 + m * 4,
           f"resident bytes {acc.resident_bytes()} != {m * f * 4 + m * 4}")
@@ -613,6 +841,203 @@ def phase_streaming() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7
+# ---------------------------------------------------------------------------
+
+
+def perturbed(params, seed: int = 1) -> dict:
+    """``params`` with the embedding moved by SENSITIVITY_NOISE relative
+    (a fresh tensor; the other leaves are shared)."""
+    emb = params["embedding"]
+    gen = torch.Generator(device=emb.device).manual_seed(seed)
+    noise = torch.randn(emb.shape, generator=gen, device=emb.device)
+    moved = noise.mul_(SENSITIVITY_NOISE).add_(1.0).mul_(emb)
+    return dict(params, embedding=moved)
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def teacher_forced(model, params, state, tokens) -> list:
+    """Decode logits of ``tokens`` (B, n) fed one at a time from ``state``."""
+    out = []
+    for i in range(tokens.shape[1]):
+        logits, state = model.decode_step(params, state, tokens[:, i:i + 1])
+        out.append(logits)
+    return out
+
+
+def max_diff(a, b) -> float:
+    if isinstance(a, list):
+        return max(max_diff(x, y) for x, y in zip(a, b))
+    return _max_err(a.float(), b.float())
+
+
+def print_serving_profile(kernels, wall_us, label) -> None:
+    if not kernels:
+        print(f"profiled {label}: the profiler recorded no device time")
+        return
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    groups = {"flash_attention": ("flash_attention_kernel",),
+              "rglru_scan": ("scan_kernel", "chunk_summary_kernel"),
+              "matrix products": ("gemm",)}
+    shares = {name: sum(e.self_device_time_total for e in kernels
+                        if any(k in e.key.lower() for k in keys))
+              for name, keys in groups.items()}
+    print(f"profiled {label}: {wall_us / 1e3:.3f} ms wall (profiler on), "
+          f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; "
+          + "; ".join(f"{n} {t / 1e3:.3f} ms = {t / busy_us:.1%}"
+                      for n, t in shares.items())
+          + f"; {sum(e.count for e in kernels)} kernel launches")
+    print_top(kernels, 8)
+
+
+def phase_serve_cli() -> dict:
+    """``repro_torch.launch.serve``'s entry point at full width."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+                      "--prompt-len", str(SERVE_PROMPT), "--gen",
+                      str(SERVE_GEN), "--seed", "0"])
+    launches = counts()
+    print(f"serve CLI: launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    check(launches == expect(flash_attention=12, rglru_scan=26),
+          f"serve CLI launch counts {launches} != 12 flash_attention, 26 "
+          "rglru_scan (prefill), none else")
+    tok = res["tokens"]
+    check(tuple(tok.shape) == (SERVE_BATCH, SERVE_GEN), "serve CLI: tokens")
+    return launches
+
+
+def phase_serving() -> dict:
+    cfg = get_config(SERVE_ARCH)
+    model = Model(cfg)
+    check(model.num_params() == SERVE_PARAMS,
+          f"{model.num_params()} parameters != {SERVE_PARAMS}")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.layer_kinds[:3]} x, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} KV head(s) of {cfg.resolved_head_dim}, "
+          f"window {cfg.local_window}, vocab {cfg.vocab_size}; "
+          f"{model.num_params()} fp32 parameters from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = torch.as_tensor(TokenStream(cfg.vocab_size, seed=0).batch(
+        SERVE_BATCH, SERVE_PROMPT)["tokens"], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"prefill B={SERVE_BATCH} S={SERVE_PROMPT}: {prefill_s:.3f} s; "
+          f"launches {launches}")
+    check(launches == expect(flash_attention=12, rglru_scan=26),
+          f"prefill launch counts {launches} != 12 flash_attention, 26 "
+          "rglru_scan, none else")
+    tokens = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]]
+    decode_logits = []
+    st = state
+    t0 = time.perf_counter()
+    for _ in range(SERVE_GEN - 1):
+        lg, st = model.decode_step(params, st, tokens[-1])
+        decode_logits.append(lg)
+        tokens.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None])
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / (SERVE_GEN - 1)
+    check(counts() == launches, f"decode launched kernels: {counts()}")
+    tokens = torch.cat(tokens, 1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"decode: {SERVE_GEN - 1} greedy steps, {decode_s * 1e3:.3f} "
+          f"ms/token (B={SERVE_BATCH}); no kernel launched; peak memory "
+          f"{peak} B; tokens[0, :16] {tokens[0, :16].tolist()}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "tokens in range")
+    check(bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in decode_logits),
+        "finite logits")
+
+    wall, kernels = device_profile(
+        lambda: model.prefill(params, {"tokens": prompts}))
+    print_serving_profile(kernels, wall, "prefill")
+    wall, kernels = device_profile(
+        lambda: model.decode_step(params, st, tokens[:, -1:]))
+    print_serving_profile(kernels, wall, "decode step")
+
+    naive = Model(cfg, impl="naive")
+    n_logits, n_state = naive.prefill(params, {"tokens": prompts})
+    n_decode = teacher_forced(naive, params, n_state, tokens[:, :-1])
+    del n_state
+    moved = perturbed(params)
+    m_logits, m_state = naive.prefill(moved, {"tokens": prompts})
+    m_decode = teacher_forced(naive, moved, m_state, tokens[:, :-1])
+    del moved, m_state
+    scale = float(n_logits.abs().max())
+    for what, kern, plain, plain_moved in [
+            ("prefill logits", logits, n_logits, m_logits),
+            ("teacher-forced decode logits", decode_logits, n_decode,
+             m_decode)]:
+        diff, spread = max_diff(kern, plain), max_diff(plain, plain_moved)
+        print(f"  kernel vs plain route, {what}: max|diff| {diff:.3e}; "
+              f"plain spread under a {SENSITIVITY_NOISE:g} embedding move "
+              f"{spread:.3e} (ratio {diff / max(spread, 1e-30):.2f}); "
+              f"largest |logit| {scale:.3e}")
+        check(spread > 0, f"{what}: the perturbed plain route moved")
+        check(diff <= SENSITIVITY_FACTOR * spread,
+              f"{what}: kernel vs plain {diff:.3e} > {SENSITIVITY_FACTOR} x "
+              f"spread {spread:.3e}")
+    return dict(prefill_s=prefill_s, decode_s=decode_s, peak=peak,
+                launches=launches)
+
+
+def phase_serving_card_vs_cpu() -> None:
+    """One pattern cycle (3 layers) at full width, past the window: the
+    card's kernel route against the CPU (whose wrappers take the plain
+    versions), held to SENSITIVITY_FACTOR times the card's plain-route
+    spread."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=3)
+    card = Model(cfg)
+    params = card.init(0)
+    prompts = TokenStream(cfg.vocab_size, seed=0).batch(
+        CPU_BATCH, CPU_PROMPT)["tokens"]
+    reset_counts()
+    logits, _ = card.prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    check(counts() == expect(flash_attention=1, rglru_scan=2),
+          f"3-layer prefill launch counts {counts()}")
+    naive = Model(cfg, impl="naive")
+    plain, _ = naive.prefill(params, {"tokens": prompts})
+    moved, _ = naive.prefill(perturbed(params), {"tokens": prompts})
+    spread = max_diff(plain, moved)
+    cpu_params = to_cpu(params)
+    del params
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu_logits, _ = Model(cfg, device="cpu").prefill(cpu_params,
+                                                     {"tokens": prompts})
+    cpu_s = time.perf_counter() - t0
+    diff = max_diff(logits.cpu(), cpu_logits)
+    print(f"  card vs CPU, 3 layers, B={CPU_BATCH} S={CPU_PROMPT}: max|diff| "
+          f"{diff:.3e}; card plain spread {spread:.3e} (ratio "
+          f"{diff / max(spread, 1e-30):.2f}); largest |logit| "
+          f"{float(cpu_logits.abs().max()):.3e}; CPU prefill {cpu_s:.1f} s")
+    check(spread > 0, "the perturbed plain route moved")
+    check(diff <= SENSITIVITY_FACTOR * spread,
+          f"card vs CPU {diff:.3e} > {SENSITIVITY_FACTOR} x spread "
+          f"{spread:.3e}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -634,6 +1059,10 @@ def main() -> int:
     time_slice_rule(*s_cases["stream_n8192_f1024"])
     time_segment_sum(*s_cases["lenet_n100_f44426"])
     del cases, s_cases
+    errs["flash_attention"] = check_attention_against_plain()
+    timing["flash_attention"] = time_attention()
+    errs["rglru_scan"] = check_scan_against_plain()
+    timing["rglru_scan"] = time_scan()
 
     print("== phase 3: main path at full width")
     sch, plan_s, ue_data, test = main_path_inputs()
@@ -647,6 +1076,13 @@ def main() -> int:
 
     print("== phase 6: streaming edge aggregation, 1,048,576 rows")
     launches["segment_sum"] = phase_streaming()
+
+    print("== phase 7: serving full-width RecurrentGemma-9B")
+    phase_serve_cli()
+    served = phase_serving()
+    for name in ("flash_attention", "rglru_scan"):
+        launches[name] = served["launches"][name]
+    phase_serving_card_vs_cpu()
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + ", ".join(KERNELS))

@@ -5,11 +5,15 @@
 * ``logreg_data``            — low-dimensional Gaussian-mixture features for
   the strongly-convex logistic-regression task (Assumption 1 holds).
 
+* ``TokenStream``           — order-2 Markov pseudo-text token batches
+  (prompts for the transformer stack's serving path).
+
 Copied from the JAX package's ``repro/data/synthetic.py`` (numpy only), so
-both packages draw byte-identical data from the same seed.  Its
-``TokenStream`` waits for the transformer stack (ROADMAP Queue 1 item 14).
+both packages draw byte-identical data from the same seed.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -40,3 +44,28 @@ def logreg_data(seed: int = 0, n: int = 2000, dim: int = 32,
     labels = rng.integers(0, num_classes, n)
     x = means[labels] + rng.normal(0.0, 1.0, (n, dim))
     return {"images": x.astype(np.float32), "labels": labels.astype(np.int32)}
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic pseudo-text: order-2 Markov chain over the vocab.
+
+    Learnable structure (bigram statistics) so training loss decreases;
+    fully reproducible from the seed; no files.
+    """
+    vocab_size: int
+    seed: int = 0
+
+    def batch(self, batch_size: int, seq_len: int, step: int = 0):
+        rng = np.random.default_rng((self.seed, step))
+        v = self.vocab_size
+        # next = (a*prev + b*prev2 + noise) mod v — cheap learnable chain
+        a, b = 31, 17
+        toks = np.zeros((batch_size, seq_len + 1), np.int64)
+        toks[:, 0] = rng.integers(0, v, batch_size)
+        toks[:, 1] = rng.integers(0, v, batch_size)
+        for t in range(2, seq_len + 1):
+            noise = rng.integers(0, 7, batch_size)
+            toks[:, t] = (a * toks[:, t - 1] + b * toks[:, t - 2] + noise) % v
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "targets": toks[:, 1:].astype(np.int32)}

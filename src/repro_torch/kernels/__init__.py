@@ -4,5 +4,10 @@
   flat ``(N, F)`` buffer (``csrc/segment_aggregate.cu``,
   ``csrc/cloud_aggregate.cu``), and the streaming accumulator's per-edge
   weighted sums (``csrc/segment_sum.cu``).
+* ``flash_attention`` — blocked online-softmax GQA attention with causal
+  and sliding-window masks, the prefill attention of the transformer stack
+  (``csrc/flash_attention.cu``).
+* ``rglru_scan``     — the RG-LRU linear recurrence ``h_t = a_t h_{t-1} +
+  b_t`` (``csrc/rglru_scan.cu``).
 * ``build``          — ``nvcc`` build at first use, bound with ``ctypes``.
 """

@@ -1,7 +1,8 @@
-"""The port's CUDA aggregation kernels (``segment_aggregate``,
-``cloud_aggregate``, ``segment_sum``) against their plain PyTorch versions,
-on the card.  Imports only torch and numpy, so it runs on a GPU machine
-without JAX:  PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
+"""The port's CUDA kernels (``segment_aggregate``, ``cloud_aggregate``,
+``segment_sum``, ``flash_attention``, ``rglru_scan``) against their plain
+PyTorch versions, on the card.  Imports only torch and numpy, so it runs
+on a GPU machine without JAX:
+PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
 Without a card every case skips: a CUDA kernel has no CPU mode."""
 import numpy as np
 import pytest
@@ -111,3 +112,128 @@ def test_cuda_segment_sum_matches_plain_version(cuda, name):
         assert (out[2] == 0).all()
     if edit == "zero_weight_group":
         assert (out[1] == 0).all()
+
+
+# B, Sq, Sk, H, K, hd, causal, window, dtype, layout
+ATTN_CASES = {
+    # tests/test_kernels.py's ATTN_CASES
+    "gqa": (2, 128, 128, 8, 4, 64, True, 0, torch.float32, None),
+    "window_64": (1, 256, 256, 4, 4, 32, True, 64, torch.float32, None),
+    "ragged_100": (2, 100, 100, 8, 2, 64, True, 0, torch.float32, None),
+    "decode_1_of_384": (1, 1, 384, 8, 8, 64, True, 0, torch.float32, None),
+    "decode_ragged_250": (1, 1, 250, 4, 2, 32, True, 0, torch.float32, None),
+    "decode_window": (1, 1, 512, 4, 4, 64, True, 128, torch.float32, None),
+    "mqa_128": (2, 64, 64, 8, 1, 128, True, 0, torch.float32, None),
+    "swa_48": (1, 192, 192, 6, 3, 32, True, 48, torch.float32, None),
+    # RecurrentGemma's MQA at head_dim 256 under a window
+    "mqa_256_window": (1, 300, 300, 16, 1, 256, True, 128, torch.float32,
+                       None),
+    # ragged Sq and Sk, Sq < Sk
+    "ragged_sq_sk": (2, 77, 333, 4, 2, 32, True, 0, torch.float32, None),
+    # query tile 1 (rows 64..127, window 40): its first key tile (keys
+    # 0..31) is live for rows 64..71 and fully masked for rows 72..127
+    "masked_leading_tile": (1, 256, 256, 4, 1, 64, True, 40, torch.float32,
+                            None),
+    "non_causal": (2, 200, 200, 8, 2, 64, False, 0, torch.float32, None),
+    "non_causal_sq_lt_sk": (1, 70, 300, 4, 1, 100, False, 0, torch.float32,
+                            None),
+    "non_causal_window": (1, 130, 130, 4, 2, 32, False, 24, torch.float32,
+                          None),
+    "bf16": (2, 128, 128, 8, 4, 64, True, 0, torch.bfloat16, None),
+    # q, k, v as views into one fused (B, S, H + 2K, hd) projection
+    "strided_views": (2, 96, 96, 8, 2, 64, True, 32, torch.float32, "fused"),
+    # the serving shape of full-width RecurrentGemma-9B
+    "serving": (2, 4096, 4096, 16, 1, 256, True, 2048, torch.float32, None),
+}
+
+
+def _attn_inputs(case, cuda):
+    B, Sq, Sk, H, K, hd, _, _, dtype, layout = case
+    rng = np.random.default_rng(Sq * 7 + Sk)
+    if layout == "fused":
+        fused = torch.from_numpy(rng.normal(
+            0, 1, (B, Sq, H + 2 * K, hd)).astype(np.float32)).to(cuda, dtype)
+        return fused[:, :, :H], fused[:, :, H:H + K], fused[:, :, H + K:]
+    return tuple(torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+                 .to(cuda, dtype)
+                 for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_cuda_flash_attention_matches_plain_version(cuda, name):
+    """fp32 within 2e-5 (tests/test_kernels.py's tolerance); bf16 output
+    within 2 bf16 ulps of the largest value.  Two launches agree bit for
+    bit."""
+    from repro_torch.kernels import flash_attention as fa
+    case = ATTN_CASES[name]
+    causal, window, dtype = case[6], case[7], case[8]
+    q, k, v = _attn_inputs(case, cuda)
+    before = fa.launch_counts["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention"] == before + 2
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max()
+    tol = 2e-5 if dtype == torch.float32 else 2 * 2 ** -8 * ref.abs().max()
+    assert err <= tol
+    assert torch.equal(out, again)
+
+
+# B, S, D, dtype, chunks (None: the wrapper's rule)
+SCAN_CASES = {
+    "b2_s64_d128": (2, 64, 128, torch.float32, None),
+    "ragged_s300_d96": (1, 300, 96, torch.float32, None),
+    "tiny_s17_d8": (3, 17, 8, torch.float32, None),
+    "s512_d256": (1, 512, 256, torch.float32, None),
+    "one_chunk": (1, 512, 256, torch.float32, 1),
+    "three_chunks_ragged": (2, 301, 200, torch.float32, 3),
+    "chunk_per_step": (1, 50, 130, torch.float32, 50),
+    "bf16": (2, 256, 128, torch.bfloat16, None),
+    "serving": (2, 4096, 4096, torch.float32, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_cuda_rglru_scan_matches_plain_version(cuda, name, monkeypatch):
+    """Within 1e-5 of the largest |h|: the kernel runs each chunk
+    sequentially, the plain version is a log-depth scan."""
+    from repro_torch.kernels import rglru_scan as rs
+    B, S, D, dtype, chunks = SCAN_CASES[name]
+    if chunks is not None:
+        monkeypatch.setattr(rs, "scan_chunks", lambda *_: chunks)
+    rng = np.random.default_rng(S + D)
+    a = torch.from_numpy(rng.uniform(0.7, 0.999, (B, S, D)).astype(
+        np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.normal(0, 1, (B, S, D)).astype(np.float32)).to(
+        cuda, dtype)
+    before = rs.launch_counts["rglru_scan"]
+    out = rs.rglru_scan(a, b)
+    again = rs.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rs.launch_counts["rglru_scan"] == before + 2
+    ref = rs.rglru_scan_plain(a, b)
+    assert out.dtype == torch.float32 and out.shape == a.shape
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_and_scan_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    q = torch.zeros(1, 8, 2, 6, device=cuda)         # head_dim not /4
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 10, device=cuda)[..., :8]  # stride 10 not /4
+    kv = torch.zeros(1, 8, 2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv)
+    a = torch.zeros(1, 8, 4, device=cuda)
+    with pytest.raises(ValueError):
+        rs.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
