@@ -11,7 +11,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paths' shapes and at the edge cases; each kernel timed (CUDA events,
    median of 100 launches, L2 flushed before each) beside its plain
    version, one PyTorch library call (where one computes the same
-   function) and its bound.
+   function) and its bound.  ``flash_attention`` at the prefill shapes of
+   phases 7 and 8, ``decode_attention`` at their decode shapes (and with
+   half and twice its rule's split count).
 3. The main path at full width: ``plan()`` on the paper's 5-edge,
    100-UE topology, then synchronous Algorithm 1 on full LeNet
    (``HFLSimulator(device="cuda")``) for 2 cloud rounds; each kernel's
@@ -31,13 +33,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fp32 parameters from seed 0) through ``repro_torch.launch.serve``,
    B=2, a 4,096-token prompt (twice the 2,048 window) and 32 greedy
    tokens; then the same model step by step: 12 ``flash_attention`` and
-   26 ``rglru_scan`` launches in prefill, none in decode; a profiled
-   prefill and decode step; the kernel route against the plain route
-   (``impl="naive"``) on prefill and teacher-forced decode logits, within
-   a multiple of the plain route's spread under a 1e-7 perturbation of
-   the embedding; one pattern cycle (3 layers) at B=1, S=2,560 on the card
-   against the CPU.
-8. Kernel records as JSON, then the result line.
+   26 ``rglru_scan`` launches in prefill, 12 ``decode_attention`` launches
+   per decode step; a profiled prefill and decode step; the kernel route
+   against the plain route (``impl="naive"``) on prefill and
+   teacher-forced decode logits, within a multiple of the plain route's
+   spread under a 1e-7 perturbation of the embedding; one pattern cycle
+   (3 layers) at B=1, S=2,560 on the card against the CPU, prefill and 4
+   teacher-forced decode steps.
+8. Serving the homogeneous dense stack (the ``"scanned"`` layout) at full
+   width: ChatGLM3-6B (28 layers, 6,243,454,976 fp32 parameters from seed
+   0), B=2, a 4,096-token prompt and 32 greedy tokens, as phase 7: 28
+   ``flash_attention`` launches in prefill and 28 ``decode_attention``
+   launches per decode step; 3 layers at B=1, S=320 on the card against
+   the CPU.  Then the serving CLI with no arguments: its default,
+   StableLM-1.6B (1,644,267,520 parameters), B=4, a 64-token prompt, 32
+   tokens.
+9. Kernel records as JSON (``launches``: each path's count, read around
+   its run with the counts reset just before it, summed over the paths),
+   then the result line.
 
 Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
 ``nvidia-smi``.  Without a card it exits 1 before printing any result.
@@ -67,6 +80,7 @@ from repro_torch.fl.aggregate import StreamingEdgeAccumulator  # noqa: E402
 from repro_torch.fl.flatten import tree_leaves  # noqa: E402
 from repro_torch.fl.sim import HFLSimulator  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
 from repro_torch.kernels import rglru_scan as rs  # noqa: E402
@@ -108,6 +122,7 @@ SERVE_ARCH = "recurrentgemma-9b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 32
 SERVE_PARAMS = 8_532_381_696
 CPU_BATCH, CPU_PROMPT = 1, 2560   # one pattern cycle, card against the CPU
+CPU_STEPS = 4                     # teacher-forced decode steps, card vs CPU
 # The kernel route against the plain route (and the card against the CPU)
 # is held, as phase 4 holds LeNet, to SENSITIVITY_FACTOR times the plain
 # route's own spread when the embedding moves by 1e-7 relative
@@ -115,6 +130,14 @@ CPU_BATCH, CPU_PROMPT = 1, 2560   # one pattern cycle, card against the CPU
 # only in the order of their sums; a masking or indexing fault moves the
 # logits by percents of their scale, orders of magnitude past that.
 ATTN_ATOL = 2e-5             # tests/test_kernels.py's attention tolerance
+# Phase 8: full-width ChatGLM3-6B serving (B, prompt and tokens as phase
+# 7), and the serving CLI's default model at the CLI's default sizes.
+GLM_ARCH = "chatglm3-6b"
+GLM_PARAMS = 6_243_454_976
+GLM_CPU_PROMPT = 320
+CLI_ARCH = "stablelm-1.6b"
+CLI_PARAMS = 1_644_267_520
+CLI_BATCH, CLI_PROMPT, CLI_LAYERS = 4, 64, 24
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -132,8 +155,11 @@ KERNELS = {
     "rglru_scan": dict(
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:41"),
+    "decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:66"),
 }
-COUNTERS = (ha, fa, rs)
+COUNTERS = (ha, fa, rs, da)
 
 
 def reset_counts() -> None:
@@ -430,9 +456,10 @@ def time_slice_rule(x, w, g, m) -> None:
 # B, Sq, Sk, H, K, hd, causal, window: tests/test_kernels.py's ATTN_CASES,
 # then MQA at head_dim 256 under a window, ragged Sq < Sk, a first key tile
 # fully masked for most rows of a query tile, two non-causal cases, and the
-# serving shape of phase 7.
+# prefill shapes of phases 7 and 8.
 ATTN_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 1, 256, True,
                 2048)
+ATTN_GLM = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 2, 128, True, 0)
 ATTN_CASES = [
     (2, 128, 128, 8, 4, 64, True, 0),
     (1, 256, 256, 4, 4, 32, True, 64),
@@ -448,6 +475,7 @@ ATTN_CASES = [
     (2, 200, 200, 8, 2, 64, False, 0),
     (1, 70, 300, 4, 1, 100, False, 0),
     ATTN_SERVING,
+    ATTN_GLM,
 ]
 # B, S, D: tests/test_kernels.py's RGLRU_CASES, then the serving shape
 SCAN_SERVING = (SERVE_BATCH, SERVE_PROMPT, 4096)
@@ -532,16 +560,24 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def time_attention() -> dict:
-    """``flash_attention`` at the serving shape, its plain version and the
+def expand_heads(t, heads: int):
+    """(B, S, K, hd) -> (B, heads, S, hd), each KV head repeated for its
+    query heads: a view for K = 1 (stride 0), a copy otherwise."""
+    B, S, K, hd = t.shape
+    return t.transpose(1, 2)[:, :, None].expand(
+        B, K, heads // K, S, hd).reshape(B, heads, S, hd)
+
+
+def time_attention(case) -> dict:
+    """``flash_attention`` at a serving shape, its plain version and the
     library yardstick (``scaled_dot_product_attention`` with the same
-    boolean mask, the KV head expanded), and its bound from the unmasked
+    boolean mask, the KV heads expanded), and its bound from the unmasked
     (query, key) pairs of this shape."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
-    B, S, _, H, K, hd, causal, window = ATTN_SERVING
-    q, k, v = attn_inputs(ATTN_SERVING)
+    B, S, _, H, K, hd, causal, window = case
+    q, k, v = attn_inputs(case)
     mask = fa.attention_mask(S, S, causal, window, "cuda")
-    qt, kt, vt = (t.transpose(1, 2).expand(B, H, -1, hd) for t in (q, k, v))
+    qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library():
@@ -562,7 +598,7 @@ def time_attention() -> dict:
                  q, k, v, causal=causal, window=window), flush, 5, 1),
              library_ms=time_ms(library, flush, 10, 2),
              **bound(nbytes, 4 * hd * pairs))
-    print(f"  {'flash_attention':17s} {'-'.join(map(str, ATTN_SERVING))}: "
+    print(f"  {'flash_attention':17s} {'-'.join(map(str, case))}: "
           f"kernel {r['ms']:.3f} ms   plain {r['plain_ms']:.3f} ms   sdpa "
           f"{r['library_ms']:.3f} ms   bound {r['bound_ms']:.3f} ms "
           f"({r['bound_by']}: {pairs} unmasked pairs, {nbytes} B)")
@@ -590,6 +626,155 @@ def time_scan() -> dict:
                                  for c, t in chunked)
           + f" (the rule picks {chosen})")
     return r
+
+
+# B, W, H, K, hd, pos, window, slot layout: tests/test_kernels.py's
+# DECODE_CASES, its ring-wrapped case, an empty cache, a view [l] of a
+# stacked (L, B, W, 2, K, hd) cache, then the decode shapes of phases 7
+# (the ring full) and 8 (4,097 of 8,192 slots written) and of the CLI's
+# default model.
+DECODE_SERVING = (SERVE_BATCH, 2048, 16, 1, 256, SERVE_PROMPT, 2048, "ring")
+DECODE_GLM = (SERVE_BATCH, 2 * SERVE_PROMPT, 32, 2, 128, SERVE_PROMPT, 0,
+              "prefix")
+DECODE_CASES = [
+    (2, 256, 8, 4, 64, 100, 0, "prefix"),
+    (1, 300, 4, 2, 32, 299, 0, "prefix"),
+    (2, 512, 8, 8, 128, 400, 128, "prefix"),
+    (1, 64, 4, 1, 64, 10, 0, "prefix"),
+    (2, 32, 4, 2, 16, 40, 0, "ring"),
+    (2, 64, 8, 2, 32, 0, 0, "empty"),
+    (2, 96, 8, 2, 32, 71, 64, "stacked"),
+    DECODE_SERVING,
+    DECODE_GLM,
+    (CLI_BATCH, 2 * CLI_PROMPT, 32, 32, 64, CLI_PROMPT, 0, "prefix"),
+]
+
+
+def decode_inputs(case, dtype=torch.float32):
+    """q, k_cache, v_cache, slot_pos, pos on the card, from a seed."""
+    B, W, H, K, hd, pos, window, layout = case
+    if layout == "prefix":
+        sp = np.full(W, -10**9, np.int32)
+        sp[:min(pos + 1, W)] = np.arange(min(pos + 1, W))
+    elif layout == "empty":
+        sp = np.full(W, -10**9, np.int32)
+    else:
+        sp = np.asarray([pos - ((pos - w) % W) for w in range(W)])
+        sp = np.where(sp >= 0, sp, -10**9).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(W + H + hd)
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(dtype)
+    sp = torch.from_numpy(sp).cuda()
+    if layout == "stacked":
+        kv = torch.randn((3, B, W, 2, K, hd), generator=gen,
+                         device="cuda").to(dtype)
+        poss = torch.tensor([pos - 1, pos, pos + 1], dtype=torch.int32,
+                            device="cuda")
+        return q, kv[1, :, :, 0], kv[1, :, :, 1], torch.stack(
+            [sp - 1, sp, sp + 1])[1], poss[1]
+    k, v = (torch.randn((B, W, K, hd), generator=gen, device="cuda").to(
+        dtype) for _ in range(2))
+    return q, k, v, sp, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def check_decode_against_plain() -> float:
+    """``decode_attention`` on each case against its plain version (fp32
+    within KERNEL_RTOL of the output's scale; one bf16 case within 2 bf16
+    ulps), bit for bit between two launches, and the empty cache equal to
+    the mean of V; returns the largest fp32 absolute error."""
+    worst = 0.0
+    for case, bf16 in [(c, False) for c in DECODE_CASES] + [
+            (DECODE_CASES[0], True)]:
+        window = case[6]
+        args = decode_inputs(case, torch.bfloat16 if bf16 else torch.float32)
+        out = da.decode_attention(*args, window=window)
+        again = da.decode_attention(*args, window=window)
+        ref = da.decode_attention_plain(*args, window=window)
+        torch.cuda.synchronize()
+        name = "-".join(map(str, case)) + ("-bf16" if bf16 else "")
+        check(out.shape == args[0].shape and out.dtype == args[0].dtype,
+              f"decode_attention {name}: dtype/shape")
+        check(bool(torch.isfinite(out).all()), f"decode_attention {name}: "
+              "finite")
+        check(torch.equal(out, again), f"decode_attention {name}: two "
+              "launches differ")
+        err = _max_err(out.float(), ref.float())
+        scale = float(ref.float().abs().max())
+        tol = (2 * 2 ** -8 if bf16 else KERNEL_RTOL) * scale
+        check(err <= tol, f"decode_attention {name}: max|err| {err:.3e} > "
+              f"{tol:.3e}")
+        if case[-1] == "empty":
+            B, W, H, K, hd = case[:5]
+            mean = args[2].mean(1).repeat_interleave(H // K, 1)[:, None]
+            check(_max_err(out, mean) <= KERNEL_RTOL * scale,
+                  "decode_attention: an empty cache gives the mean of V")
+        if not bf16:
+            worst = max(worst, err)
+        splits, per = da.decode_splits(case[0] * case[3], case[1])
+        print(f"  {'decode_attention':17s} {name:32s} max|err| {err:.3e} "
+              f"(scale {scale:.3e}; {splits} splits of {per} tiles)")
+    return worst
+
+
+def time_decode(case) -> dict:
+    """``decode_attention`` at a serving decode shape, its plain version,
+    the library yardstick (``scaled_dot_product_attention`` with the
+    valid-slot boolean mask, the KV heads expanded) and its bound from the
+    slots that count in this input: their K and V rows, q and the output
+    (fp32), slot_pos and pos."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    B, W, H, K, hd, _, window, _ = case
+    q, k, v, sp, pos = decode_inputs(case)
+    mask = da.valid_slots(sp, pos, window)
+    qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(qt, kt, vt, attn_mask=mask[None, None, None]).transpose(
+            1, 2)
+
+    ref = da.decode_attention_plain(q, k, v, sp, pos, window=window)
+    lib_err = _max_err(library(), ref)
+    print(f"  {'decode_attention':17s} scaled_dot_product_attention vs "
+          f"plain max|err| {lib_err:.3e}")
+    check(lib_err <= 1e-4, "scaled_dot_product_attention computes the "
+          "same function")
+    n_valid = int(mask.sum())
+    nbytes = 4 * (2 * B * K * hd * n_valid + 2 * q.numel() + W + 1)
+    r = dict(ms=time_ms(lambda: da.decode_attention(
+                 q, k, v, sp, pos, window=window), flush),
+             plain_ms=time_ms(lambda: da.decode_attention_plain(
+                 q, k, v, sp, pos, window=window), flush),
+             library_ms=time_ms(library, flush),
+             **bound(nbytes, 4 * B * H * hd * n_valid))
+    splits, per = da.decode_splits(B * K, W)
+    print(f"  {'decode_attention':17s} {'-'.join(map(str, case))}: "
+          f"kernel {r['ms'] * 1e3:.2f} us   plain {r['plain_ms'] * 1e3:.2f} "
+          f"us   sdpa {r['library_ms'] * 1e3:.2f} us   bound "
+          f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {n_valid} of {W} "
+          f"slots count, {nbytes} B; {splits} splits of {per} tiles)")
+    return r
+
+
+def time_split_rule(case) -> None:
+    """``decode_attention`` with the split count its rule picks
+    (``decode_attention.BLOCKS_PER_SM``) against half and twice as many
+    splits, on the same inputs, so that the rule is checked on every
+    run."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    B, W, H, K, hd, _, window, _ = case
+    q, k, v, sp, pos = decode_inputs(case)
+    tiles = -(-W // da.TILE)
+    chosen = da.decode_splits(B * K, W)[0]
+    times = []
+    for splits in (max(1, chosen // 2), chosen, 2 * chosen):
+        per = -(-tiles // min(splits, tiles))
+        split = (-(-tiles // per), per)
+        with mock.patch.object(da, "decode_splits", lambda *_: split):
+            times.append((split, time_ms(lambda: da.decode_attention(
+                q, k, v, sp, pos, window=window), flush)))
+    print(f"  {'decode_attention':17s} splits: " + ", ".join(
+        f"{n} of {p} tiles -> {t * 1e3:.2f} us" for (n, p), t in times)
+        + f" (the rule picks {chosen})")
 
 
 # ---------------------------------------------------------------------------
@@ -885,6 +1070,8 @@ def print_serving_profile(kernels, wall_us, label) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     groups = {"flash_attention": ("flash_attention_kernel",),
               "rglru_scan": ("scan_kernel", "chunk_summary_kernel"),
+              "decode_attention": ("decode_partial_kernel",
+                                   "decode_combine_kernel"),
               "matrix products": ("gemm",)}
     shares = {name: sum(e.self_device_time_total for e in kernels
                         if any(k in e.key.lower() for k in keys))
@@ -897,38 +1084,45 @@ def print_serving_profile(kernels, wall_us, label) -> None:
     print_top(kernels, 8)
 
 
-def phase_serve_cli() -> dict:
-    """``repro_torch.launch.serve``'s entry point at full width."""
+def phase_serve_cli(argv, batch: int, prefill: dict,
+                    attn_layers: int) -> None:
+    """``repro_torch.launch.serve``'s entry point at full width: ``prefill``
+    launches in prefill and ``attn_layers`` ``decode_attention`` launches
+    per decode step, nothing else; (batch, SERVE_GEN) tokens."""
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    res = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
-                      "--prompt-len", str(SERVE_PROMPT), "--gen",
-                      str(SERVE_GEN), "--seed", "0"])
+    res = serve.main(argv)
     launches = counts()
-    print(f"serve CLI: launches {launches}; peak memory "
+    gen = SERVE_GEN - 1
+    print(f"serve CLI {argv}: launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated()} B")
-    check(launches == expect(flash_attention=12, rglru_scan=26),
-          f"serve CLI launch counts {launches} != 12 flash_attention, 26 "
-          "rglru_scan (prefill), none else")
-    tok = res["tokens"]
-    check(tuple(tok.shape) == (SERVE_BATCH, SERVE_GEN), "serve CLI: tokens")
-    return launches
+    check(launches == expect(decode_attention=attn_layers * gen, **prefill),
+          f"serve CLI launch counts {launches} != {prefill} (prefill), "
+          f"{attn_layers} x {gen} decode_attention, none else")
+    check(tuple(res["tokens"].shape) == (batch, SERVE_GEN),
+          "serve CLI: tokens")
 
 
-def phase_serving() -> dict:
-    cfg = get_config(SERVE_ARCH)
+def phase_serving(arch: str, n_params: int, prefill: dict,
+                  attn_layers: int) -> dict:
+    """Full-width ``arch`` from seed 0, B=SERVE_BATCH, SERVE_PROMPT prompt
+    tokens, SERVE_GEN greedy tokens: timed, launch-counted (``prefill``
+    launches in prefill, ``attn_layers`` ``decode_attention`` per decode
+    step), profiled, and the kernel route against the plain route."""
+    cfg = get_config(arch)
     model = Model(cfg)
-    check(model.num_params() == SERVE_PARAMS,
-          f"{model.num_params()} parameters != {SERVE_PARAMS}")
+    check(model.num_params() == n_params,
+          f"{model.num_params()} parameters != {n_params}")
     t0 = time.perf_counter()
     params = model.init(0)
     torch.cuda.synchronize()
-    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.layer_kinds[:3]} x, "
-          f"d_model {cfg.d_model}, {cfg.num_heads} heads over "
-          f"{cfg.num_kv_heads} KV head(s) of {cfg.resolved_head_dim}, "
-          f"window {cfg.local_window}, vocab {cfg.vocab_size}; "
-          f"{model.num_params()} fp32 parameters from seed 0 on the card in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"{cfg.name}: {cfg.num_layers} layers "
+          f"({', '.join(sorted(set(cfg.layer_kinds)))}), d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
+          f"head(s) of {cfg.resolved_head_dim}, window "
+          f"{cfg.local_window or cfg.sliding_window}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {model.num_params()} fp32 parameters from seed "
+          f"0 on the card in {time.perf_counter() - t0:.2f} s")
     prompts = torch.as_tensor(TokenStream(cfg.vocab_size, seed=0).batch(
         SERVE_BATCH, SERVE_PROMPT)["tokens"], device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -942,12 +1136,12 @@ def phase_serving() -> dict:
     launches = counts()
     print(f"prefill B={SERVE_BATCH} S={SERVE_PROMPT}: {prefill_s:.3f} s; "
           f"launches {launches}")
-    check(launches == expect(flash_attention=12, rglru_scan=26),
-          f"prefill launch counts {launches} != 12 flash_attention, 26 "
-          "rglru_scan, none else")
+    check(launches == expect(**prefill),
+          f"prefill launch counts {launches} != {prefill}, none else")
     tokens = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]]
     decode_logits = []
     st = state
+    reset_counts()
     t0 = time.perf_counter()
     for _ in range(SERVE_GEN - 1):
         lg, st = model.decode_step(params, st, tokens[-1])
@@ -955,11 +1149,14 @@ def phase_serving() -> dict:
         tokens.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None])
     torch.cuda.synchronize()
     decode_s = (time.perf_counter() - t0) / (SERVE_GEN - 1)
-    check(counts() == launches, f"decode launched kernels: {counts()}")
+    decoded = counts()
+    check(decoded == expect(decode_attention=attn_layers * (SERVE_GEN - 1)),
+          f"decode launch counts {decoded} != {attn_layers} x "
+          f"{SERVE_GEN - 1} decode_attention, none else")
     tokens = torch.cat(tokens, 1)
     peak = torch.cuda.max_memory_allocated()
     print(f"decode: {SERVE_GEN - 1} greedy steps, {decode_s * 1e3:.3f} "
-          f"ms/token (B={SERVE_BATCH}); no kernel launched; peak memory "
+          f"ms/token (B={SERVE_BATCH}); launches {decoded}; peak memory "
           f"{peak} B; tokens[0, :16] {tokens[0, :16].tolist()}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "tokens in range")
@@ -982,59 +1179,72 @@ def phase_serving() -> dict:
     m_logits, m_state = naive.prefill(moved, {"tokens": prompts})
     m_decode = teacher_forced(naive, moved, m_state, tokens[:, :-1])
     del moved, m_state
-    scale = float(n_logits.abs().max())
-    for what, kern, plain, plain_moved in [
-            ("prefill logits", logits, n_logits, m_logits),
-            ("teacher-forced decode logits", decode_logits, n_decode,
-             m_decode)]:
-        diff, spread = max_diff(kern, plain), max_diff(plain, plain_moved)
-        print(f"  kernel vs plain route, {what}: max|diff| {diff:.3e}; "
-              f"plain spread under a {SENSITIVITY_NOISE:g} embedding move "
-              f"{spread:.3e} (ratio {diff / max(spread, 1e-30):.2f}); "
-              f"largest |logit| {scale:.3e}")
-        check(spread > 0, f"{what}: the perturbed plain route moved")
-        check(diff <= SENSITIVITY_FACTOR * spread,
-              f"{what}: kernel vs plain {diff:.3e} > {SENSITIVITY_FACTOR} x "
-              f"spread {spread:.3e}")
+    hold_to_spread("kernel vs plain route", "prefill logits", logits,
+                   n_logits, n_logits, m_logits)
+    hold_to_spread("kernel vs plain route", "teacher-forced decode logits",
+                   decode_logits, n_decode, n_decode, m_decode)
     return dict(prefill_s=prefill_s, decode_s=decode_s, peak=peak,
-                launches=launches)
+                launches={k: launches[k] + decoded[k] for k in launches})
 
 
-def phase_serving_card_vs_cpu() -> None:
-    """One pattern cycle (3 layers) at full width, past the window: the
-    card's kernel route against the CPU (whose wrappers take the plain
-    versions), held to SENSITIVITY_FACTOR times the card's plain-route
-    spread."""
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=3)
+def hold_to_spread(label: str, what: str, tested, reference, plain,
+                   plain_moved) -> None:
+    """``tested`` within SENSITIVITY_FACTOR times the plain route's own
+    spread (``plain`` against ``plain_moved``, the embedding moved by
+    SENSITIVITY_NOISE) of ``reference``."""
+    diff, spread = max_diff(tested, reference), max_diff(plain, plain_moved)
+    scale = max(float(t.abs().max()) for t in (
+        reference if isinstance(reference, list) else [reference]))
+    print(f"  {label}, {what}: max|diff| {diff:.3e}; plain spread under a "
+          f"{SENSITIVITY_NOISE:g} embedding move {spread:.3e} (ratio "
+          f"{diff / max(spread, 1e-30):.2f}); largest |logit| {scale:.3e}")
+    check(spread > 0, f"{label}, {what}: the perturbed plain route moved")
+    check(diff <= SENSITIVITY_FACTOR * spread,
+          f"{label}, {what}: {diff:.3e} > {SENSITIVITY_FACTOR} x spread "
+          f"{spread:.3e}")
+
+
+def phase_serving_card_vs_cpu(arch: str, layers: int, prompt: int,
+                              prefill: dict, attn_layers: int) -> None:
+    """``layers`` layers of ``arch`` at full width, B=CPU_BATCH: the card's
+    kernel route against the CPU (whose wrappers take the plain versions)
+    on the prefill logits and CPU_STEPS teacher-forced decode steps, held
+    to SENSITIVITY_FACTOR times the card's plain-route spread."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     card = Model(cfg)
     params = card.init(0)
-    prompts = TokenStream(cfg.vocab_size, seed=0).batch(
-        CPU_BATCH, CPU_PROMPT)["tokens"]
+    tokens = TokenStream(cfg.vocab_size, seed=0).batch(
+        CPU_BATCH, prompt + CPU_STEPS)["tokens"]
+    batch, follow = {"tokens": tokens[:, :prompt]}, tokens[:, prompt:]
     reset_counts()
-    logits, _ = card.prefill(params, {"tokens": prompts})
+    logits, state = card.prefill(params, batch)
     torch.cuda.synchronize()
-    check(counts() == expect(flash_attention=1, rglru_scan=2),
-          f"3-layer prefill launch counts {counts()}")
+    check(counts() == expect(**prefill),
+          f"{layers}-layer prefill launch counts {counts()}")
+    reset_counts()
+    decode = teacher_forced(card, params, state, follow)
+    torch.cuda.synchronize()
+    check(counts() == expect(decode_attention=attn_layers * CPU_STEPS),
+          f"{layers}-layer decode launch counts {counts()}")
     naive = Model(cfg, impl="naive")
-    plain, _ = naive.prefill(params, {"tokens": prompts})
-    moved, _ = naive.prefill(perturbed(params), {"tokens": prompts})
-    spread = max_diff(plain, moved)
+    plain, st = naive.prefill(params, batch)
+    plain_dec = teacher_forced(naive, params, st, follow)
+    moved_params = perturbed(params)
+    moved, st = naive.prefill(moved_params, batch)
+    moved_dec = teacher_forced(naive, moved_params, st, follow)
     cpu_params = to_cpu(params)
-    del params
+    del params, moved_params, state, st
     torch.set_num_threads(os.cpu_count() or 1)
+    cpu = Model(cfg, device="cpu")
     t0 = time.perf_counter()
-    cpu_logits, _ = Model(cfg, device="cpu").prefill(cpu_params,
-                                                     {"tokens": prompts})
-    cpu_s = time.perf_counter() - t0
-    diff = max_diff(logits.cpu(), cpu_logits)
-    print(f"  card vs CPU, 3 layers, B={CPU_BATCH} S={CPU_PROMPT}: max|diff| "
-          f"{diff:.3e}; card plain spread {spread:.3e} (ratio "
-          f"{diff / max(spread, 1e-30):.2f}); largest |logit| "
-          f"{float(cpu_logits.abs().max()):.3e}; CPU prefill {cpu_s:.1f} s")
-    check(spread > 0, "the perturbed plain route moved")
-    check(diff <= SENSITIVITY_FACTOR * spread,
-          f"card vs CPU {diff:.3e} > {SENSITIVITY_FACTOR} x spread "
-          f"{spread:.3e}")
+    cpu_logits, cpu_state = cpu.prefill(cpu_params, batch)
+    cpu_dec = teacher_forced(cpu, cpu_params, cpu_state, follow)
+    print(f"  card vs CPU, {layers} layers, B={CPU_BATCH} S={prompt} + "
+          f"{CPU_STEPS} decode steps: CPU {time.perf_counter() - t0:.1f} s")
+    hold_to_spread("card vs CPU", "prefill logits", logits.cpu(),
+                   cpu_logits, plain, moved)
+    hold_to_spread("card vs CPU", "teacher-forced decode logits",
+                   [t.cpu() for t in decode], cpu_dec, plain_dec, moved_dec)
 
 
 # ---------------------------------------------------------------------------
@@ -1060,9 +1270,14 @@ def main() -> int:
     time_segment_sum(*s_cases["lenet_n100_f44426"])
     del cases, s_cases
     errs["flash_attention"] = check_attention_against_plain()
-    timing["flash_attention"] = time_attention()
+    timing["flash_attention"] = time_attention(ATTN_SERVING)
+    time_attention(ATTN_GLM)
     errs["rglru_scan"] = check_scan_against_plain()
     timing["rglru_scan"] = time_scan()
+    errs["decode_attention"] = check_decode_against_plain()
+    time_decode(DECODE_SERVING)
+    timing["decode_attention"] = time_decode(DECODE_GLM)
+    time_split_rule(DECODE_GLM)
 
     print("== phase 3: main path at full width")
     sch, plan_s, ue_data, test = main_path_inputs()
@@ -1078,11 +1293,26 @@ def main() -> int:
     launches["segment_sum"] = phase_streaming()
 
     print("== phase 7: serving full-width RecurrentGemma-9B")
-    phase_serve_cli()
-    served = phase_serving()
-    for name in ("flash_attention", "rglru_scan"):
-        launches[name] = served["launches"][name]
-    phase_serving_card_vs_cpu()
+    rg_prefill = dict(flash_attention=12, rglru_scan=26)
+    phase_serve_cli(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+                     "--prompt-len", str(SERVE_PROMPT), "--gen",
+                     str(SERVE_GEN), "--seed", "0"], SERVE_BATCH, rg_prefill,
+                    12)
+    served = phase_serving(SERVE_ARCH, SERVE_PARAMS, rg_prefill, 12)
+    phase_serving_card_vs_cpu(SERVE_ARCH, 3, CPU_PROMPT,
+                              dict(flash_attention=1, rglru_scan=2), 1)
+
+    print("== phase 8: serving the scanned dense stack: full-width "
+          "ChatGLM3-6B, then the serving CLI's default")
+    glm = phase_serving(GLM_ARCH, GLM_PARAMS, dict(flash_attention=28), 28)
+    phase_serving_card_vs_cpu(GLM_ARCH, 3, GLM_CPU_PROMPT,
+                              dict(flash_attention=3), 3)
+    check(Model(get_config(CLI_ARCH)).num_params() == CLI_PARAMS,
+          f"{CLI_ARCH}: parameters != {CLI_PARAMS}")
+    phase_serve_cli([], CLI_BATCH, dict(flash_attention=CLI_LAYERS),
+                    CLI_LAYERS)
+    for name in ("flash_attention", "rglru_scan", "decode_attention"):
+        launches[name] = served["launches"][name] + glm["launches"][name]
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + ", ".join(KERNELS))

@@ -9,5 +9,8 @@
   (``csrc/flash_attention.cu``).
 * ``rglru_scan``     — the RG-LRU linear recurrence ``h_t = a_t h_{t-1} +
   b_t`` (``csrc/rglru_scan.cu``).
+* ``decode_attention`` — one-token GQA attention over the ring KV cache,
+  the decode attention of the transformer stack
+  (``csrc/decode_attention.cu``).
 * ``build``          — ``nvcc`` build at first use, bound with ``ctypes``.
 """

@@ -2,10 +2,12 @@
 Ported from the JAX package's ``repro/launch/serve.py`` (plain-token
 models; the encoder-decoder and vision branches are not ported yet).
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve   # StableLM-1.6B, card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+      --batch 2 --prompt-len 4096 --gen 32          # full width, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
       --smoke --device cpu --batch 2 --prompt-len 160 --gen 8
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
-      --batch 2 --prompt-len 4096 --gen 32          # full width, on the card
 
 Parameters are random, from ``--seed``; prompts come from
 ``TokenStream``.  Prints the prefill time and the decode time per token.
@@ -68,7 +70,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    # the encoder-decoder and vision models raise NotImplementedError here
+    # the MoE, xLSTM, encoder-decoder and vision models raise
+    # NotImplementedError here
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     B, S = args.batch, args.prompt_len

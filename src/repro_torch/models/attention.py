@@ -1,14 +1,16 @@
 """GQA self-attention: full-sequence (train / prefill) and decode with a
 ring KV cache.  Ported from the JAX package's ``repro/models/attention.py``.
 
-Two implementations of the full-sequence score/softmax/value contraction:
-  * ``kernel`` — ``kernels.flash_attention``: the CUDA kernel on the card,
-                 its plain version on the CPU (the default);
-  * ``naive``  — full S x S scores from positions; the oracle.
-Decode attention (one query over the ring cache) is plain torch, as in the
-reference.  Supports causal, sliding-window and bidirectional masking, GQA
-head groups, partial RoPE and qk-norm.  Cross attention (encoder-decoder)
-is not ported yet (ROADMAP Queue 1 item 14).
+Two implementations of the score/softmax/value contraction, full-sequence
+(train / prefill) and decode (one query over the ring cache):
+  * ``kernel`` — ``kernels.flash_attention`` and
+                 ``kernels.decode_attention``: the CUDA kernels on the
+                 card, their plain versions on the CPU (the default);
+  * ``naive``  — dense scores from positions, and the reference decode's
+                 own formula; the oracle.
+Supports causal, sliding-window and bidirectional masking, GQA head
+groups, partial RoPE and qk-norm.  Cross attention (encoder-decoder) is
+not ported yet (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.layers import Spec, apply_rope, rms_norm, rope_freqs
 
@@ -114,9 +117,12 @@ def init_kv_cache(cfg, batch: int, W: int, device=None):
     }
 
 
-def decode_self_attention(cfg, p, x, cache, *, window=0):
+def decode_self_attention(cfg, p, x, cache, *, window=0, impl="kernel",
+                          in_place=False):
     """x: (B,1,D).  Insert token at cache['pos'], attend over valid slots.
-    Returns a new cache; the old one is left as it was."""
+    Returns a new cache; the old one is left as it was, unless
+    ``in_place``: then the token is written into ``cache``'s own k, v and
+    slot_pos (a copy that the caller made, as the scanned stack does)."""
     B = x.shape[0]
     W = cache["k"].shape[1]
     hd = cfg.resolved_head_dim
@@ -125,22 +131,29 @@ def decode_self_attention(cfg, p, x, cache, *, window=0):
     positions = pos.reshape(1)
     q, k, v = _project_qkv(cfg, p, x, positions, inv_freqs)
     slot = torch.remainder(pos, W).reshape(1).long()
-    new_k = cache["k"].index_copy(1, slot, k)
-    new_v = cache["v"].index_copy(1, slot, v)
-    new_slot_pos = cache["slot_pos"].index_copy(0, slot, positions)
+    write = torch.Tensor.index_copy_ if in_place else torch.Tensor.index_copy
+    new_k = write(cache["k"], 1, slot, k)
+    new_v = write(cache["v"], 1, slot, v)
+    new_slot_pos = write(cache["slot_pos"], 0, slot, positions)
 
-    H = cfg.num_heads
-    K = cfg.num_kv_heads
-    g = H // K
-    qg = q.reshape(B, 1, K, g, hd) * (1.0 / math.sqrt(hd))
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, new_k).float()
-    # empty slots hold slot_pos = -1e9 ("never written") — exclude them
-    valid = (new_slot_pos >= 0) & (new_slot_pos <= pos)
-    if window > 0:
-        valid &= (pos - new_slot_pos) < window
-    s = s.masked_fill(~valid, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", pr, new_v).reshape(B, 1, H, hd)
+    if impl == "kernel":
+        o = da.decode_attention(q, new_k, new_v, new_slot_pos, pos,
+                                window=window)
+    elif impl == "naive":
+        H = cfg.num_heads
+        K = cfg.num_kv_heads
+        g = H // K
+        qg = q.reshape(B, 1, K, g, hd) * (1.0 / math.sqrt(hd))
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, new_k).float()
+        # empty slots hold slot_pos = -1e9 ("never written") — exclude them
+        valid = (new_slot_pos >= 0) & (new_slot_pos <= pos)
+        if window > 0:
+            valid &= (pos - new_slot_pos) < window
+        s = s.masked_fill(~valid, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskh->bqkgh", pr, new_v).reshape(B, 1, H, hd)
+    else:
+        raise ValueError(f"impl must be 'kernel' or 'naive', got {impl!r}")
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     new_cache = {"k": new_k, "v": new_v, "slot_pos": new_slot_pos,
                  "pos": pos + 1}

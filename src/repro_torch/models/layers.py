@@ -47,6 +47,16 @@ def spec_leaves(tree):
     return out
 
 
+def stack_specs(spec_tree, n: int, axis_name: str = "layer"):
+    """Prepend a stacking dim of ``n`` (the ``"scanned"`` layout's layers).
+    ``fan_in`` stays the unstacked leaf's, so ``init_tree`` draws each
+    layer at its own scale."""
+    return map_specs(
+        lambda s: Spec((n,) + s.shape, (axis_name,) + s.axes, s.init,
+                       s.fan_in or (s.shape[0] if s.shape else 1)),
+        spec_tree)
+
+
 # Truncated normal on [-2, 2] by inverting the normal CDF on a uniform draw:
 # u ~ U(erf(-2/sqrt 2), erf(2/sqrt 2)), x = sqrt(2) erfinv(u).
 _TRUNC = math.erf(2.0 / math.sqrt(2.0))

@@ -5,9 +5,12 @@ Ported from the JAX package's ``repro/models/model.py``, serving half:
 the training slice (ROADMAP Queue 1 item 14).
 
 ``impl="kernel"`` (the default; the JAX package's ``impl="pallas"``) runs
-prefill attention and the RG-LRU scan through ``repro_torch.kernels``:
-the CUDA kernels on the card, their plain versions on the CPU.
-``impl="naive"`` runs dense attention and the plain scan: the oracle.
+prefill attention, decode attention and the RG-LRU scan through
+``repro_torch.kernels``: the CUDA kernels on the card, their plain
+versions on the CPU.  ``impl="naive"`` runs dense attention, the
+reference decode's own attention formula and the plain scan: the oracle.
+Homogeneous dense stacks keep the reference's ``"scanned"`` layout
+(stacked parameters and decode state; ``models/transformer.py``).
 Parameters, activations and the decode state are fp32 (the reference's
 default ``param_dtype``/``act_dtype``), and prefill sizes the caches of
 global-attention layers for one more prompt length (its default
@@ -93,7 +96,8 @@ class Model:
     def decode_step(self, params, state, tokens):
         """tokens: (B,1) -> (logits (B,1,V), new_state)."""
         x = self._embed(params, tokens)
-        x, state = tfm.decode_stack(self.cfg, params, x, state)
+        x, state = tfm.decode_stack(self.cfg, params, x, state,
+                                    impl=self.impl)
         return self._logits(params, x), state
 
 

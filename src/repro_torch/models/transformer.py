@@ -1,21 +1,30 @@
 """Composable transformer stack, ported from the JAX package's
 ``repro/models/transformer.py`` for the layer kinds ``attn``,
-``local_attn`` and ``rglru`` in the ``"layers"``-list layout (a python
-loop over per-layer parameter dicts).
+``local_attn`` and ``rglru``, in both of its layouts:
+
+* ``"layers"``  — heterogeneous stacks (RecurrentGemma): a list of
+  per-layer parameter dicts and states, one python loop;
+* ``"scanned"`` — homogeneous dense ``attn`` stacks (StableLM, ChatGLM3,
+  Qwen3, Mistral-Large): every parameter and state leaf stacked along a
+  leading layer axis, as the reference stacks them for its ``lax.scan``;
+  the port loops over the layers with views ``[l]`` of the stacked
+  tensors.  The decode state is ``{"k", "v": (L, B, W, K, hd),
+  "slot_pos": (L, W), "pos": (L,)}``.
 
 Not ported yet; each raises ``NotImplementedError`` (ROADMAP Queue 1 item
-14): MoE layers, the xLSTM kinds ``mlstm`` and ``slstm``, the
-encoder-decoder stack and the homogeneous ``"scanned"`` layout (stacked
-parameters, one ``lax.scan`` over layers in the reference).
+14): MoE layers, the xLSTM kinds ``mlstm`` and ``slstm`` and the
+encoder-decoder stack.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
-                                       norm_specs)
+                                       norm_specs, stack_specs)
 
 _ITEM = "ROADMAP Queue 1 item 14"
 
@@ -37,8 +46,13 @@ def _check_kind(cfg, kind: str):
 def _check_stack(cfg):
     if cfg.encoder_decoder:
         raise _not_ported("the encoder-decoder stack")
-    if cfg.homogeneous:
-        raise _not_ported("the homogeneous 'scanned' layer layout")
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked (``"scanned"``) tree: views, no copies."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def _window(cfg, kind: str) -> int:
@@ -109,6 +123,13 @@ def prefill_stack(cfg, p, x, *, cache_len, impl="kernel"):
     """Full-sequence stack returning (x, decode_state) — the prefill path."""
     _check_stack(cfg)
     states = []
+    if cfg.homogeneous:
+        for i in range(cfg.num_layers):
+            x, st = prefill_block(cfg, "attn", _layer(p["scanned"], i), x,
+                                  cache_len=cache_len, impl=impl)
+            states.append(st)
+        return x, {"scanned": {k: torch.stack([st[k] for st in states])
+                               for k in states[0]}}
     for kind, lp in zip(cfg.layer_kinds, p["layers"]):
         x, st = prefill_block(cfg, kind, lp, x, cache_len=cache_len,
                               impl=impl)
@@ -116,12 +137,15 @@ def prefill_stack(cfg, p, x, *, cache_len, impl="kernel"):
     return x, {"layers": states}
 
 
-def decode_block(cfg, kind, p, x, state):
+def decode_block(cfg, kind, p, x, state, *, impl="kernel", in_place=False):
+    """One-token block.  Returns (x, new_state); ``in_place`` writes an
+    attention layer's token into ``state`` itself (see
+    ``attention.decode_self_attention``)."""
     _check_kind(cfg, kind)
     if kind in ("attn", "local_attn"):
         h, state = attn.decode_self_attention(
             cfg, p["attn"], apply_norm(cfg, p["ln1"], x), state,
-            window=_window(cfg, kind))
+            window=_window(cfg, kind), impl=impl, in_place=in_place)
     else:
         h, state = rec.rglru_decode_step(cfg, p["rnn"],
                                          apply_norm(cfg, p["ln1"], x), state)
@@ -135,20 +159,40 @@ def decode_block(cfg, kind, p, x, state):
 
 def stack_specs_tree(cfg):
     _check_stack(cfg)
+    if cfg.homogeneous:
+        return {"scanned": stack_specs(block_specs(cfg, "attn"),
+                                       cfg.num_layers)}
     return {"layers": [block_specs(cfg, k) for k in cfg.layer_kinds]}
 
 
 def init_stack_state(cfg, batch: int, max_len: int, device=None):
     _check_stack(cfg)
+    if cfg.homogeneous:
+        one = init_layer_state(cfg, "attn", batch, max_len, device)
+        return {"scanned": {k: torch.stack([v] * cfg.num_layers)
+                            for k, v in one.items()}}
     return {"layers": [init_layer_state(cfg, k, batch, max_len, device)
                        for k in cfg.layer_kinds]}
 
 
-def decode_stack(cfg, p, x, state):
-    """One-token decode through the stack.  Returns (x, new_state)."""
+def decode_stack(cfg, p, x, state, *, impl="kernel"):
+    """One-token decode through the stack.  Returns (x, new_state); the old
+    state is left as it was.  The scanned layout copies its stacked k, v
+    and slot_pos once per step and writes each layer's token into that
+    copy (ROADMAP Queue 4: in place)."""
     _check_stack(cfg)
+    if cfg.homogeneous:
+        old = state["scanned"]
+        new = {k: old[k].clone() for k in ("k", "v", "slot_pos")}
+        for i in range(cfg.num_layers):
+            ls = {k: t[i] for k, t in new.items()}
+            ls["pos"] = old["pos"][i]
+            x, _ = decode_block(cfg, "attn", _layer(p["scanned"], i), x, ls,
+                                impl=impl, in_place=True)
+        new["pos"] = old["pos"] + 1
+        return x, {"scanned": new}
     new_states = []
     for kind, lp, ls in zip(cfg.layer_kinds, p["layers"], state["layers"]):
-        x, ns = decode_block(cfg, kind, lp, x, ls)
+        x, ns = decode_block(cfg, kind, lp, x, ls, impl=impl)
         new_states.append(ns)
     return x, {"layers": new_states}

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (``segment_aggregate``, ``cloud_aggregate``,
-``segment_sum``, ``flash_attention``, ``rglru_scan``) against their plain
-PyTorch versions, on the card.  Imports only torch and numpy, so it runs
-on a GPU machine without JAX:
+``segment_sum``, ``flash_attention``, ``rglru_scan``,
+``decode_attention``) against their plain PyTorch versions, on the card.
+Imports only torch and numpy, so it runs on a GPU machine without JAX:
 PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
 Without a card every case skips: a CUDA kernel has no CPU mode."""
 import numpy as np
@@ -223,8 +223,80 @@ def test_cuda_rglru_scan_matches_plain_version(cuda, name, monkeypatch):
     assert torch.equal(out, again)
 
 
+# B, W, H, K, hd, pos, window, slot layout: tests/test_kernels.py's
+# DECODE_CASES, its ring-wrapped case, an empty cache, a view [l] of a
+# stacked (L, B, W, 2, K, hd) cache, and the decode shapes of full-width
+# RecurrentGemma-9B (ring full), ChatGLM3-6B and StableLM-1.6B.
+DECODE_CASES = {
+    "gqa_2-256-8-4-64": (2, 256, 8, 4, 64, 100, 0, "prefix"),
+    "ragged_1-300-4-2-32": (1, 300, 4, 2, 32, 299, 0, "prefix"),
+    "window_2-512-8-8-128": (2, 512, 8, 8, 128, 400, 128, "prefix"),
+    "mqa_1-64-4-1-64": (1, 64, 4, 1, 64, 10, 0, "prefix"),
+    "ring_wrapped": (2, 32, 4, 2, 16, 40, 0, "ring"),
+    "all_empty": (2, 64, 8, 2, 32, 0, 0, "empty"),
+    "stacked_view": (2, 96, 8, 2, 32, 71, 64, "stacked"),
+    "recurrentgemma": (2, 2048, 16, 1, 256, 4096, 2048, "ring"),
+    "chatglm3": (2, 8192, 32, 2, 128, 4096, 0, "prefix"),
+    "stablelm": (4, 128, 32, 32, 64, 64, 0, "prefix"),
+}
+
+
+def _decode_inputs(case, cuda, dtype):
+    """q, k_cache, v_cache, slot_pos, pos on the card."""
+    B, W, H, K, hd, pos, window, layout = case
+    rng = np.random.default_rng(W + H + hd)
+    if layout == "prefix":
+        sp = np.full(W, -10**9, np.int32)
+        sp[:min(pos + 1, W)] = np.arange(min(pos + 1, W))
+    elif layout == "empty":
+        sp = np.full(W, -10**9, np.int32)
+    else:
+        sp = np.asarray([pos - ((pos - w) % W) for w in range(W)])
+        sp = np.where(sp >= 0, sp, -10**9).astype(np.int32)
+    q = torch.from_numpy(rng.normal(0, 1, (B, 1, H, hd)).astype(np.float32))
+    if layout == "stacked":
+        kv = torch.from_numpy(rng.normal(0, 1, (3, B, W, 2, K, hd)).astype(
+            np.float32)).to(cuda, dtype)
+        sps = torch.from_numpy(np.stack([sp - 1, sp, sp + 1])).to(cuda)
+        poss = torch.tensor([pos - 1, pos, pos + 1], dtype=torch.int32,
+                            device=cuda)
+        return (q.to(cuda, dtype), kv[1, :, :, 0], kv[1, :, :, 1], sps[1],
+                poss[1])
+    k, v = (torch.from_numpy(rng.normal(0, 1, (B, W, K, hd)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    return (q.to(cuda, dtype), k, v, torch.from_numpy(sp).to(cuda),
+            torch.tensor(pos, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_cuda_decode_attention_matches_plain_version(cuda, name, dtype):
+    """fp32 within 1e-5 of the output's scale; bf16 output within 2 bf16
+    ulps of the largest value.  Two launches agree bit for bit (the
+    partials are combined in split order, no atomics)."""
+    from repro_torch.kernels import decode_attention as da
+    case = DECODE_CASES[name]
+    window = case[6]
+    q, k, v, sp, pos = _decode_inputs(case, cuda, dtype)
+    before = da.launch_counts["decode_attention"]
+    out = da.decode_attention(q, k, v, sp, pos, window=window)
+    again = da.decode_attention(q, k, v, sp, pos, window=window)
+    torch.cuda.synchronize()
+    assert da.launch_counts["decode_attention"] == before + 2
+    ref = da.decode_attention_plain(q, k, v, sp, pos, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    scale = ref.float().abs().max()
+    err = (out.float() - ref.float()).abs().max()
+    assert err <= (1e-5 if dtype == torch.float32 else 2 * 2 ** -8) * scale
+    assert torch.equal(out, again)
+
+
 @pytest.mark.cuda
 def test_cuda_attention_and_scan_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rs
     q = torch.zeros(1, 8, 2, 6, device=cuda)         # head_dim not /4
@@ -237,3 +309,19 @@ def test_cuda_attention_and_scan_raise_instead_of_falling_back(cuda):
     a = torch.zeros(1, 8, 4, device=cuda)
     with pytest.raises(ValueError):
         rs.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    # decode_attention: a bad stride, dtype or device raises; nothing runs
+    before = da.launch_counts["decode_attention"]
+    q = torch.zeros(1, 1, 4, 8, device=cuda)
+    kv = torch.zeros(1, 16, 2, 8, device=cuda)
+    sp = torch.zeros(16, dtype=torch.int32, device=cuda)
+    pos = torch.tensor(3, dtype=torch.int32, device=cuda)
+    narrow = torch.zeros(1, 16, 2, 10, device=cuda)[..., :8]
+    with pytest.raises(ValueError):                   # stride 10 not /4
+        da.decode_attention(q, narrow, kv, sp, pos)
+    with pytest.raises(TypeError):
+        da.decode_attention(q, kv.bfloat16(), kv, sp, pos)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, kv.cpu(), kv, sp, pos)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, kv, kv, sp, pos.cpu())
+    assert da.launch_counts["decode_attention"] == before

@@ -79,11 +79,17 @@ def test_param_specs_match_reference(smoke):
         assert tm.num_params() == 8_532_381_696
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-125m",
-                                  "whisper-base", "stablelm-1.6b",
-                                  "internvl2-26b"])
+# arch -> what its NotImplementedError names (the homogeneous MoE stacks
+# raise for the MoE layer, not for their "scanned" layout)
+UNPORTED = {"mixtral-8x7b": "MoE layer", "xlstm-125m": "xLSTM",
+            "whisper-base": "frontend", "qwen2-moe-a2.7b": "MoE layer",
+            "internvl2-26b": "frontend"}
+
+
+@pytest.mark.parametrize("arch", list(UNPORTED))
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError,
+                       match=f"{UNPORTED[arch]}.*item 14"):
         Model(t_base.get_config(arch, smoke=True), device="cpu").param_specs()
 
 
@@ -290,7 +296,9 @@ def test_smoke_greedy_decode_logits(smoke_runs, torch_impl):
 
 def test_serve_runs_without_jax():
     """``repro_torch.launch.serve`` imports and serves the smoke model on
-    the CPU with JAX made unimportable, and loads nothing of ``repro``."""
+    the CPU with JAX made unimportable, and loads nothing of ``repro``:
+    RecurrentGemma, then the CLI's default (StableLM-1.6B, the scanned
+    layout) with every other flag at its default."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -299,6 +307,8 @@ def test_serve_runs_without_jax():
         "                  '--device', 'cpu', '--batch', '1',\n"
         "                  '--prompt-len', '70', '--gen', '3'])\n"
         "assert tuple(res['tokens'].shape) == (1, 3)\n"
+        "res = serve.main(['--smoke', '--device', 'cpu'])\n"
+        "assert tuple(res['tokens'].shape) == (4, 32)\n"
         "bad = [m for m in sys.modules if m == 'repro' or\n"
         "       m.startswith(('repro.', 'jax.', 'jaxlib'))]\n"
         "assert not bad, bad\n"
