@@ -13,7 +13,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version, one PyTorch library call (where one computes the same
    function) and its bound.  ``flash_attention`` at the prefill shapes of
    phases 7 and 8, ``decode_attention`` at their decode shapes (and with
-   half and twice its rule's split count).
+   half and twice its rule's split count), ``weighted_mean`` at phase 9's
+   slab and at a fleet-scale shard (and with half and twice its rule's
+   row slices).
 3. The main path at full width: ``plan()`` on the paper's 5-edge,
    100-UE topology, then synchronous Algorithm 1 on full LeNet
    (``HFLSimulator(device="cuda")``) for 2 cloud rounds; each kernel's
@@ -48,9 +50,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the CPU.  Then the serving CLI with no arguments: its default,
    StableLM-1.6B (1,644,267,520 parameters), B=4, a 64-token prompt, 32
    tokens.
-9. Kernel records as JSON (``launches``: each path's count, read around
-   its run with the counts reset just before it, summed over the paths),
-   then the result line.
+9. Data-sharded synchronous Algorithm 1: two ``torch.distributed`` ranks
+   (gloo, both on the one card; ``run_ranks``) on a 2 x 1 mesh, each
+   holding the UE rows of whole edges, run phase 3's problem and model for
+   ROUNDS rounds: ``b*`` ``segment_aggregate`` and one ``weighted_mean``
+   launch per rank per round, no ``cloud_aggregate``; held to phase 3's
+   unsharded run within SENSITIVITY_FACTOR times the spread of that run
+   under a 1e-7 init move (the largest of three moves), and its accuracy
+   within one test sample.  Then one sharded cloud event at fleet scale,
+   2 ranks x 16,384 UE rows x 44,426 fp32 columns made on the card,
+   against a float64 sum and all-reduce.
+10. Kernel records as JSON (``launches``: each path's count, read around
+   its run with the counts reset just before it, summed over the paths
+   and, in phase 9, over the ranks), then the result line.
 
 Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
 ``nvidia-smi``.  Without a card it exits 1 before printing any result.
@@ -76,7 +88,8 @@ from repro_torch.configs.lenet_mnist import LeNetConfig  # noqa: E402
 from repro_torch.core import HFLProblem, plan  # noqa: E402
 from repro_torch.data import (TokenStream, size_partition,  # noqa: E402
                               synthetic_mnist)
-from repro_torch.fl.aggregate import StreamingEdgeAccumulator  # noqa: E402
+from repro_torch.fl.aggregate import (StreamingEdgeAccumulator,  # noqa: E402
+                                      flat_cloud_aggregate)
 from repro_torch.fl.flatten import tree_leaves  # noqa: E402
 from repro_torch.fl.sim import HFLSimulator  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -85,6 +98,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
 from repro_torch.kernels import rglru_scan as rs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_agg_mesh, run_ranks  # noqa: E402
 from repro_torch.models.lenet import lenet_init, lenet_loss  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
@@ -138,6 +152,16 @@ GLM_CPU_PROMPT = 320
 CLI_ARCH = "stablelm-1.6b"
 CLI_PARAMS = 1_644_267_520
 CLI_BATCH, CLI_PROMPT, CLI_LAYERS = 4, 64, 24
+# Phase 9: two data shards of phase 3's fleet (5 edges of 20 UEs packed
+# 3 + 2: 60 rows a shard, 20 of them padding on the second), then a
+# fleet-scale shard per rank.
+SHARD_RANKS = 2
+SHARD_ROWS = 60
+SPREAD_SEEDS = (1, 2, 3)
+LENET_PARAMS = 44_426
+FLEET_ROWS = 16_384
+FLEET_SEED = 11
+RANK_TIMEOUT_S = 480
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -146,6 +170,9 @@ KERNELS = {
     "cloud_aggregate": dict(
         source="src/repro_torch/kernels/csrc/cloud_aggregate.cu",
         replaces="src/repro/kernels/hier_aggregate.py:117"),
+    "weighted_mean": dict(
+        source="src/repro_torch/kernels/csrc/weighted_mean.cu",
+        replaces="src/repro/kernels/hier_aggregate.py:62"),
     "segment_sum": dict(
         source="src/repro_torch/kernels/csrc/segment_sum.cu",
         replaces="src/repro/kernels/hier_aggregate.py:263"),
@@ -449,6 +476,134 @@ def time_slice_rule(x, w, g, m) -> None:
             times.append((split[0], time_ms(
                 lambda: ha.segment_sum(x, w, g, m, out=acc), flush)))
     print("  segment_sum       slices: " + ", ".join(
+        f"{s} -> {t * 1e3:.2f} us" for s, t in times)
+        + f" (the rule picks {chosen})")
+
+
+def fleet_shard(rank: int):
+    """Rank ``rank``'s fleet-scale shard (FLEET_ROWS x LENET_PARAMS fp32)
+    and its weights in [0.5, 2), made on the card from a generator keyed
+    by (FLEET_SEED, rank)."""
+    seed = int(np.random.SeedSequence([FLEET_SEED, rank])
+               .generate_state(1)[0])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(FLEET_ROWS, LENET_PARAMS, generator=gen, device="cuda")
+    w = torch.rand(FLEET_ROWS, generator=gen, device="cuda") * 1.5 + 0.5
+    return x, w
+
+
+def mean_cases():
+    """name -> (x, w) for ``weighted_mean`` on the card: phase 9's slab,
+    a fleet-scale shard in fp32 and bf16, then the edge cases."""
+    rng = np.random.default_rng(2)
+    cases = {}
+    for name, n, f, edit in [
+            ("slab_n60_f44426", SHARD_ROWS, LENET_PARAMS, None),
+            ("one_row", 1, 1001, None),
+            ("n513_past_tpu_split", 513, 1001, None),
+            ("ragged_n1030_f1001", 1030, 1001, None),
+            ("one_nonzero_weight", 300, 1001, "one"),
+            ("all_zero_weights", 40, 300, "zero"),
+            ("bf16_n513", 513, 1001, "bf16")]:
+        x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
+        w = torch.from_numpy(rng.uniform(200, 1000, n).astype(np.float32))
+        if edit == "bf16":
+            x = x.to(torch.bfloat16)
+        if edit == "one":
+            w[:] = 0.0
+            w[n // 2] = 3.0
+        if edit == "zero":
+            w[:] = 0.0
+        cases[name] = (x.cuda(), w.cuda())
+    x, w = fleet_shard(0)
+    cases["fleet_n16384_f44426"] = (x, w)
+    cases["bf16_fleet"] = (x.to(torch.bfloat16), w)
+    return cases
+
+
+def check_mean_against_plain(cases) -> float:
+    """``weighted_mean`` on each case against its plain version, bit for
+    bit between two launches, NaN for all-zero weights (0/0, as the
+    reference); returns the largest absolute error."""
+    worst = 0.0
+    for case, (x, w) in cases.items():
+        out = ha.weighted_mean(x, w)
+        again = ha.weighted_mean(x, w)
+        ref = ha.weighted_mean_plain(x, w)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.float32 and tuple(out.shape) ==
+              (x.shape[1],), f"weighted_mean on {case}: dtype/shape")
+        if case == "all_zero_weights":
+            check(bool(out.isnan().all()), "weighted_mean: all-zero weights "
+                  "do not give NaN")
+            print(f"  {'weighted_mean':17s} {case:22s} gives NaN (0/0), as "
+                  "the reference")
+            continue
+        check(bool(torch.isfinite(out).all()), f"weighted_mean on {case}: "
+              "finite")
+        check(torch.equal(out, again), f"weighted_mean on {case}: two "
+              "launches differ")
+        err = _max_err(out, ref)
+        scale = float(ref.abs().max())
+        check(err <= KERNEL_RTOL * scale, f"weighted_mean on {case}: max|err| "
+              f"{err:.3e} > {KERNEL_RTOL} x {scale:.3e}")
+        if case == "one_nonzero_weight":
+            row = x[x.shape[0] // 2].float()
+            check(_max_err(out, row) <= KERNEL_RTOL * scale,
+                  "weighted_mean: one nonzero weight gives that row")
+        worst = max(worst, err)
+        print(f"  {'weighted_mean':17s} {case:22s} max|err| {err:.3e} "
+              f"(scale {scale:.3e}; "
+              f"{ha.weighted_mean_slices(*x.shape)[0]} row slices)")
+    return worst
+
+
+def time_mean(x, w) -> dict:
+    """``weighted_mean``, its plain version and, for fp32, the library
+    yardstick ``torch.mv(x.t(), w) / w.sum()``, and its bound from this
+    input's bytes (the slab and w read once, the mean written once) and
+    operations."""
+    flush = torch.empty(256 * 2**20 // 4, device=x.device)   # > 50 MB L2
+    n, f = x.shape
+    fp32 = x.dtype == torch.float32
+
+    def library():
+        return torch.mv(x.t(), w) / w.sum()
+
+    if fp32:
+        ref = ha.weighted_mean_plain(x, w)
+        check(_max_err(library(), ref) <= KERNEL_RTOL * float(
+            ref.abs().max()), "torch.mv computes the weighted mean")
+    r = dict(ms=time_ms(lambda: ha.weighted_mean(x, w), flush),
+             plain_ms=time_ms(lambda: ha.weighted_mean_plain(x, w), flush),
+             library_ms=time_ms(library, flush) if fp32 else None,
+             **bound(n * f * x.element_size() + n * 4 + f * 4, 2 * n * f))
+    lib = (f"torch.mv {r['library_ms'] * 1e3:9.2f} us" if fp32 else
+           "torch.mv (fp32 only)")
+    print(f"  {'weighted_mean':17s} N={n} F={f} {str(x.dtype)[6:]}: kernel "
+          f"{r['ms'] * 1e3:9.2f} us   plain {r['plain_ms'] * 1e3:9.2f} us   "
+          f"{lib}   bound {r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']}; "
+          f"{ha.weighted_mean_slices(n, f)[0]} row slices)")
+    return r
+
+
+def time_mean_slice_rule(x, w) -> None:
+    """``weighted_mean`` with the slice count its rule picks
+    (``hier_aggregate.MEAN_BLOCKS_PER_SM``) against half and twice as many
+    slices and a sweep of others, on the same inputs."""
+    flush = torch.empty(256 * 2**20 // 4, device=x.device)
+    n = x.shape[0]
+    chosen = ha.weighted_mean_slices(*x.shape)[0]
+    times = []
+    for slices in sorted({1, 2, 3, 4, 6, 8, 12, 16, 32, max(1, chosen // 2),
+                          chosen, 2 * chosen}):
+        rows = -(-n // slices)
+        rows = -(-rows // ha.ROWS) * ha.ROWS
+        split = (-(-n // rows), rows)
+        with mock.patch.object(ha, "weighted_mean_slices", lambda *_: split):
+            times.append((split[0], time_ms(lambda: ha.weighted_mean(x, w),
+                                            flush)))
+    print("  weighted_mean     slices: " + ", ".join(
         f"{s} -> {t * 1e3:.2f} us" for s, t in times)
         + f" (the rule picks {chosen})")
 
@@ -794,11 +949,11 @@ def main_path_inputs():
     return sch, plan_s, ue_data, test
 
 
-def make_sim(sch, ue_data, device, noise=0.0, **kw):
+def make_sim(sch, ue_data, device, noise=0.0, noise_seed=1, **kw):
     init = lenet_init(torch.Generator().manual_seed(0), LeNetConfig(),
                       device="cpu")
     if noise:
-        gen = torch.Generator().manual_seed(1)
+        gen = torch.Generator().manual_seed(noise_seed)
         init = {k: {kk: v * (1 + noise * torch.randn(v.shape, generator=gen))
                     for kk, v in layer.items()} for k, layer in init.items()}
     init = {k: {kk: v.to(device) for kk, v in layer.items()}
@@ -840,7 +995,14 @@ def phase_main_path(sch, plan_s, ue_data, test):
     torch.cuda.synchronize()
     print(f"one more cloud round, warm: {time.perf_counter() - t0:.3f} s")
     profile_round(sim, test)
-    return launches
+    return launches, run_summary(res)
+
+
+def run_summary(res) -> dict:
+    """A ``SimResult``'s curves and final params, on the host."""
+    return dict(test_acc=res.test_acc, test_loss=res.test_loss,
+                train_loss=res.train_loss,
+                final=[t.cpu() for t in tree_leaves(res.final_params)])
 
 
 def device_profile(fn):
@@ -1248,6 +1410,140 @@ def phase_serving_card_vs_cpu(arch: str, layers: int, prompt: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase 9
+# ---------------------------------------------------------------------------
+
+
+def sharded_rank(sch, ue_data, test) -> dict:
+    """One rank of phase 9, run by ``run_ranks`` (``spawn`` imports this
+    script in each rank; ``main`` does not run there)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_agg_mesh(1, SHARD_RANKS, timeout=datetime.timedelta(
+        seconds=RANK_TIMEOUT_S))
+    sim = make_sim(sch, ue_data, mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sim.run(test, rounds=ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    t0 = time.perf_counter()
+    sim.run(test, rounds=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    x, w = fleet_shard(mesh.rank)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = flat_cloud_aggregate(x, w, mesh=mesh)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    fleet_launches = counts()
+    num = torch.zeros(LENET_PARAMS, dtype=torch.float64, device=x.device)
+    for start in range(0, FLEET_ROWS, 2048):
+        num += w[start:start + 2048].double() @ x[start:start + 2048].double()
+    v = torch.cat([num, w.double().sum()[None]])
+    dist.all_reduce(v, group=mesh.data_group)
+    ref = v[:-1] / v[-1]
+    return dict(rank=mesh.rank, device=str(mesh.device),
+                slab=tuple(sim._flat.shape), run_s=run_s, warm_s=warm_s,
+                launches=launches, summary=run_summary(res),
+                fleet_s=fleet_s, fleet_launches=fleet_launches,
+                fleet_err=float((out.double() - ref).abs().max()),
+                fleet_scale=float(ref.abs().max()),
+                fleet_finite=bool(torch.isfinite(out).all()))
+
+
+def phase_sharded(sch, ue_data, test, unsharded) -> dict:
+    """Phase 9; returns each kernel's launches summed over the ranks and
+    over the sharded run and the fleet-scale event."""
+    # The spread of phase 3's run itself, over the same ROUNDS rounds, when
+    # its init moves by SENSITIVITY_NOISE relative (the largest over
+    # SPREAD_SEEDS draws of the move: one draw's train-loss spread came out
+    # 10x under its test-loss one): the sharded run differs from it only
+    # in the order of the cloud sums.
+    spread = dict.fromkeys(("final", "test_loss", "train_loss"), 0.0)
+    for seed in SPREAD_SEEDS:
+        moved = run_summary(make_sim(sch, ue_data, "cuda",
+                                     noise=SENSITIVITY_NOISE,
+                                     noise_seed=seed).run(test, rounds=ROUNDS))
+        spread["final"] = max(spread["final"], max(
+            _max_err(a, b) for a, b in zip(moved["final"],
+                                           unsharded["final"])))
+        for key in ("test_loss", "train_loss"):
+            spread[key] = max(spread[key], float(
+                np.abs(moved[key] - unsharded[key]).max()))
+    torch.cuda.empty_cache()        # the ranks share the card with us
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_rank, SHARD_RANKS, sch, ue_data, test,
+                      device="cuda", timeout_s=RANK_TIMEOUT_S)
+    print(f"{SHARD_RANKS} ranks (gloo, both on {ranks[0]['device']}, so "
+          f"they share one card) on a {SHARD_RANKS} x 1 mesh: "
+          f"{time.perf_counter() - t0:.1f} s from spawn to results")
+    per_rank = expect(segment_aggregate=sch.b * ROUNDS,
+                      weighted_mean=ROUNDS)
+    for r in ranks:
+        print(f"  rank {r['rank']}: slab {r['slab']} fp32; {ROUNDS} rounds "
+              f"{r['run_s']:.3f} s (first-call warm-up included), one more "
+              f"round, warm: {r['warm_s']:.3f} s; launches {r['launches']}")
+        check(r["slab"] == (SHARD_ROWS, LENET_PARAMS),
+              f"rank {r['rank']}: slab {r['slab']}")
+        check(r["launches"] == per_rank, f"rank {r['rank']}: launch counts "
+              f"{r['launches']} != {per_rank}")
+    first = ranks[0]["summary"]
+    for r in ranks[1:]:
+        check(all(np.array_equal(first[k], r["summary"][k])
+                  for k in ("test_acc", "test_loss", "train_loss"))
+              and all(torch.equal(a, b) for a, b in
+                      zip(first["final"], r["summary"]["final"])),
+              "the ranks' results differ")
+    for key in ("final", "test_loss", "train_loss"):
+        if key == "final":
+            diff = max(_max_err(a, b) for a, b in
+                       zip(first["final"], unsharded["final"]))
+        else:
+            diff = float(np.abs(first[key] - unsharded[key]).max())
+        ratio = diff / max(spread[key], 1e-30)
+        print(f"  sharded vs phase 3's unsharded run, {key}: max|diff| "
+              f"{diff:.3e}; spread of that run under a {SENSITIVITY_NOISE:g} "
+              f"init move {spread[key]:.3e} (largest of "
+              f"{len(SPREAD_SEEDS)} moves; ratio {ratio:.2f})")
+        check(spread[key] > 0, f"the perturbed run's {key} moved")
+        check(diff <= SENSITIVITY_FACTOR * spread[key],
+              f"sharded {key} {diff:.3e} > {SENSITIVITY_FACTOR} x spread "
+              f"{spread[key]:.3e}")
+    n_test = len(test["labels"])
+    acc = float(np.abs(first["test_acc"] - unsharded["test_acc"]).max())
+    print(f"  test accuracy {first['test_acc'].tolist()} against "
+          f"{unsharded['test_acc'].tolist()}")
+    check(acc <= 1.0 / n_test + 1e-9, f"sharded accuracy {acc} apart, more "
+          f"than one of {n_test} test samples")
+
+    for r in ranks:
+        print(f"  fleet-scale cloud event, rank {r['rank']}: {FLEET_ROWS} x "
+              f"{LENET_PARAMS} fp32 ({FLEET_ROWS * LENET_PARAMS * 4} B) in "
+              f"{r['fleet_s'] * 1e3:.3f} ms (host clock, synchronised; the "
+              f"all-reduce of {LENET_PARAMS + 1} floats through gloo "
+              f"included); max|err| against float64 {r['fleet_err']:.3e} "
+              f"(largest |mean| {r['fleet_scale']:.3e}); launches "
+              f"{r['fleet_launches']}")
+        check(r["fleet_finite"], "fleet-scale event: finite")
+        check(r["fleet_err"] <= STREAM_RTOL * r["fleet_scale"],
+              f"fleet-scale event: max|err| {r['fleet_err']:.3e} > "
+              f"{STREAM_RTOL} x {r['fleet_scale']:.3e}")
+        check(r["fleet_launches"] == expect(weighted_mean=1),
+              f"fleet-scale launch counts {r['fleet_launches']}")
+    return {name: sum(r["launches"][name] + r["fleet_launches"][name]
+                      for r in ranks) for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1278,10 +1574,17 @@ def main() -> int:
     time_decode(DECODE_SERVING)
     timing["decode_attention"] = time_decode(DECODE_GLM)
     time_split_rule(DECODE_GLM)
+    m_cases = mean_cases()
+    errs["weighted_mean"] = check_mean_against_plain(m_cases)
+    timing["weighted_mean"] = time_mean(*m_cases["slab_n60_f44426"])
+    time_mean(*m_cases["fleet_n16384_f44426"])
+    time_mean(*m_cases["bf16_fleet"])
+    time_mean_slice_rule(*m_cases["fleet_n16384_f44426"])
+    del m_cases
 
     print("== phase 3: main path at full width")
     sch, plan_s, ue_data, test = main_path_inputs()
-    launches = phase_main_path(sch, plan_s, ue_data, test)
+    launches, unsharded = phase_main_path(sch, plan_s, ue_data, test)
 
     print("== phase 4: the card against the CPU, one cloud round")
     card_sync, spread = phase_card_vs_cpu(sch, ue_data, test)
@@ -1313,6 +1616,11 @@ def main() -> int:
                     CLI_LAYERS)
     for name in ("flash_attention", "rglru_scan", "decode_attention"):
         launches[name] = served["launches"][name] + glm["launches"][name]
+
+    print("== phase 9: data-sharded sync Algorithm 1, 2 ranks on the card")
+    sharded = phase_sharded(sch, ue_data, test, unsharded)
+    for name in ("segment_aggregate", "weighted_mean"):
+        launches[name] += sharded[name]
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + ", ".join(KERNELS))

@@ -7,7 +7,10 @@ association and (a*, b*); ``fl.sim.HFLSimulator`` runs synchronous or
 async Algorithm 1 on the flat ``(N, F_total)`` buffer, whose edge (eq. 6)
 and cloud (eq. 10) aggregations are hand-written CUDA kernels
 (``kernels/csrc``), as is the per-edge sum of each chunk the streaming
-edge accumulator (``fl.aggregate.StreamingEdgeAccumulator``) folds.  The
+edge accumulator (``fl.aggregate.StreamingEdgeAccumulator``) folds.
+``HFLSimulator(mesh=)`` runs the synchronous algorithm data-sharded over
+``torch.distributed`` ranks (``launch.mesh``), each data shard reducing
+its slab with a hand-written kernel before one all-reduce.  The
 transformer stack's serving path (``models.model.Model``,
 ``launch.serve``) serves RecurrentGemma-9B with hand-written CUDA kernels
 for its prefill attention and its RG-LRU scan.  Entry points run on the

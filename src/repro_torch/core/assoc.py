@@ -11,12 +11,13 @@ beyond-paper local searches ``refined`` and ``cluster_refined``):
 * ``random_assoc`` — baseline from §V-C: uniform random under capacity.
 
 Copied from the JAX package's ``repro/core/assoc.py`` (numpy only): the
-strategies ``plan`` can name.  The stochastic ``refined`` objectives raise
-until their models are ported; ``exhaustive`` (a test oracle) and the
-fault path's ``failover``/``orphans_of`` wait for later slices.
+strategies ``plan`` can name and the enumeration oracle ``exhaustive``.
+The stochastic ``refined`` objectives raise until their models are ported;
+the fault path's ``failover``/``orphans_of`` wait for a later slice.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -157,6 +158,25 @@ def proposed(problem: HFLProblem) -> np.ndarray:
             counts[m] += 1
     _assert_valid(problem, assoc, cap)
     return assoc
+
+
+def exhaustive(problem: HFLProblem, a: float = 1.0) -> np.ndarray:
+    """Exact solution of problem (38)/(39) by enumeration — tiny N, M only."""
+    N, M = problem.num_ues, problem.num_edges
+    if M**N > 2_000_000:
+        raise ValueError(f"exhaustive infeasible for M^N = {M}^{N}")
+    cap = capacity_of(problem)
+    best, best_val = None, np.inf
+    for choice in itertools.product(range(M), repeat=N):
+        counts = np.bincount(choice, minlength=M)
+        if (counts > cap).any():
+            continue
+        assoc = np.zeros((N, M), dtype=np.int64)
+        assoc[np.arange(N), list(choice)] = 1
+        v = delay.association_latency(problem, assoc, a)
+        if v < best_val:
+            best, best_val = assoc, v
+    return best
 
 
 def _latency_terms(problem: HFLProblem, a: float):

@@ -202,6 +202,20 @@ def _stationarity_solve(problem, sum_mu_tcmp, sum_lam_tau, T, a0, b0):
     return float(np.clip(a, 1e-2, 1e4)), float(np.clip(b, 1e-2, 1e4))
 
 
+def paper_closed_form_ab(problem, lam, mu, tau, t_cmp, T):
+    """Eqs. (31)/(32) exactly as printed (known algebra slips; NaNs possible)."""
+    zeta, gamma = problem.zeta, problem.gamma
+    s_lt = float(np.sum(lam * tau))
+    s_mt = float(np.sum(mu * t_cmp))
+    with np.errstate(all="ignore"):
+        a = zeta * np.log(s_lt / (zeta * s_mt) + 1.0)
+        A = problem.big_c * T * np.log(1.0 / problem.epsilon)
+        Y = 1.0 - np.exp(-a / zeta)
+        num = A * Y - np.sqrt(4.0 * A * Y * s_lt + (A * Y) ** 2)
+        b = gamma * np.log(num / (2.0 * s_lt) + 1.0) / (-Y)
+    return float(a), float(b)
+
+
 def solve_dual(problem: HFLProblem, assoc: np.ndarray,
                eta: float = 0.5, max_iter: int = 500,
                tol: float = 1e-6, temp: float = 0.05,

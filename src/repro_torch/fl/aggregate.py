@@ -1,9 +1,11 @@
 """Weighted model aggregation — eqs. (6) and (10), ported from the JAX
-package's ``repro/fl/aggregate.py`` (single device, no mesh).
+package's ``repro/fl/aggregate.py``.
 
+* list-of-dicts bookkeeping: ``weighted_average``;
 * the FLAT buffer (``repro_torch.fl.flatten``): ``flat_edge_aggregate`` /
   ``flat_cloud_aggregate`` — the hot path, one kernel launch per event
-  (``repro_torch.kernels.hier_aggregate``);
+  (``repro_torch.kernels.hier_aggregate``), on one device or on a
+  ('data', 'model') mesh of ranks (``mesh=``, below);
 * the async cloud merge ``flat_staleness_merge`` and the fault rule
   ``survivor_weights`` (plain torch, as the JAX package leaves them to
   XLA);
@@ -15,34 +17,97 @@ package's ``repro/fl/aggregate.py`` (single device, no mesh).
 
 The kernel wrappers pick the path by the buffer's device: the CUDA kernel
 for a CUDA tensor, the plain PyTorch version for a CPU tensor.
+
+Mesh sharding (``mesh=``, a ``repro_torch.launch.mesh.AggMesh``): the
+multi-controller counterpart of the reference's ``shard_map``.  EVERY rank
+calls the function with ITS OWN slab of the padded
+``ShardedFlatLayout`` buffer (``layout.local``: its group-aligned rows,
+its column slab) and its rows' weights and group ids, and gets its own
+slab back.  Collective pattern, as in the reference:
+
+* edge (eq. 6): none.  The layout keeps every edge inside one data shard,
+  so each rank's local segment means ARE the global ones;
+* cloud (eq. 10): with one data shard, the single-slab event on the
+  column slab; with more, each rank's local weighted mean (``weighted_mean``
+  kernel) times its local weight sum, 0 for an all-padding shard, meets
+  the other shards' in ONE all-reduce of ``F_local + 1`` floats over
+  'data' (``psum_weighted_mean``), then a local broadcast-back.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.fl.flatten import FlatLayout
+from repro_torch.fl.flatten import FlatLayout, _items, _unflatten, tree_leaves
 from repro_torch.kernels import hier_aggregate as ha
 
 
-def flat_cloud_aggregate(buf: torch.Tensor, weights) -> torch.Tensor:
+def weighted_average(params_list: Sequence[dict], weights) -> dict:
+    """eq. (6)/(10): ``sum_n D_n w_n / sum_n D_n`` over a list of
+    parameter dicts; each leaf keeps its dtype."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    w = w / w.sum()
+    leaves = [tree_leaves(p) for p in params_list]
+    paths = [p for p, _ in _items(params_list[0])]
+    out = []
+    for col in zip(*leaves):
+        stack = torch.stack([t.to(torch.float32) for t in col])
+        out.append(torch.tensordot(w.to(stack.device), stack, dims=1)
+                   .to(col[0].dtype))
+    return _unflatten(paths, out)
+
+
+def psum_weighted_mean(num: torch.Tensor, den: torch.Tensor,
+                       group) -> torch.Tensor:
+    """ONE-collective weighted mean over the ranks of ``group`` (eq. 10's
+    ``sum_n D_n w_n / sum_n D_n`` with the sums split across ranks).
+
+    ``num`` is this rank's pre-weighted numerator vector, ``den`` its
+    weight sum; they are concatenated so that the reduction is a SINGLE
+    all-reduce of ``len(num) + 1`` floats."""
+    v = torch.cat([num, den.reshape(1).to(num.dtype)])
+    dist.all_reduce(v, group=group)
+    return v[:-1] / v[-1]
+
+
+def flat_cloud_aggregate(buf: torch.Tensor, weights, *,
+                         mesh=None) -> torch.Tensor:
     """Cloud aggregation (eq. 10) over the flat buffer.
 
     buf: (N, F_total) fp32|bf16, weights: (N,) -> (N, F_total) fp32 with
-    every row holding the global weighted mean."""
-    w = torch.as_tensor(weights, dtype=torch.float32, device=buf.device)
-    return ha.cloud_aggregate(buf, w.contiguous())
+    every row holding the global weighted mean.
+
+    With ``mesh``, every rank passes its own slab of the padded buffer and
+    its rows' weights and gets its slab of the result: each data shard
+    reduces its slab with the ``weighted_mean`` kernel and the shards meet
+    in one all-reduce over 'data' (see the module docstring)."""
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=buf.device).contiguous()
+    if mesh is None or mesh.num_data == 1:
+        return ha.cloud_aggregate(buf, w)
+    den = w.sum()
+    # the local weighted mean times the local weight sum is the local
+    # weighted sum; an all-padding shard (den == 0, mean 0/0) gives 0
+    num = torch.where(den > 0, ha.weighted_mean(buf, w) * den, 0.0)
+    mean = psum_weighted_mean(num, den, mesh.data_group)
+    return mean[None].expand(buf.shape).contiguous()
 
 
 def flat_edge_aggregate(buf: torch.Tensor, weights, group_ids,
-                        num_groups: int) -> torch.Tensor:
+                        num_groups: int, *, mesh=None) -> torch.Tensor:
     """Edge aggregation (eq. 6) over the flat buffer.
 
     buf: (N, F_total) fp32|bf16, weights: (N,), group_ids: (N,) ints in
     [0, num_groups) -> (N, F_total) fp32 with row n holding the weighted
-    mean of n's edge."""
+    mean of n's edge.
+
+    With ``mesh``, every rank passes its own slab and its rows' weights and
+    group ids, and gets its slab back, with no collective: the rows must be
+    group-aligned to the data shards (``ShardedFlatLayout`` keeps every
+    edge inside one), so the local segment means are the global ones."""
     w = torch.as_tensor(weights, dtype=torch.float32, device=buf.device)
     g = torch.as_tensor(group_ids, dtype=torch.int32, device=buf.device)
     return ha.segment_aggregate(buf, w.contiguous(), g.contiguous(),

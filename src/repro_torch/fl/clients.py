@@ -14,7 +14,8 @@ from typing import Callable
 import torch
 from torch.func import grad, vmap
 
-from repro_torch.fl.flatten import tree_leaves
+from repro_torch.fl.aggregate import psum_weighted_mean
+from repro_torch.fl.flatten import FlatLayout, tree_leaves
 
 
 def gd_local_steps(loss_fn: Callable, a: int, lr: float):
@@ -69,14 +70,24 @@ def dane_local_steps(loss_fn: Callable, a: int, lr: float,
 
 
 def global_gradient(loss_fn: Callable, stacked_params: dict,
-                    stacked_batch: dict, weights: torch.Tensor) -> dict:
+                    stacked_batch: dict, weights: torch.Tensor,
+                    group=None) -> dict:
     """Alg. 1 line 5: the weighted mean of the per-UE gradients, one
-    UNSTACKED dict."""
+    UNSTACKED dict.
+
+    With ``group`` (a mesh's data group) the rows are this rank's data
+    shard: its weighted gradient sum and weight sum meet the other shards'
+    in one all-reduce, and every rank gets the global mean."""
     grads = vmap(grad(lambda p, b: loss_fn(p, b)[0]))(stacked_params,
                                                       stacked_batch)
-    w = weights / weights.sum()
-    return _map(lambda g: torch.tensordot(w, g.to(torch.float32), dims=1),
-                grads)
+    if group is None:
+        w = weights / weights.sum()
+        return _map(lambda g: torch.tensordot(w, g.to(torch.float32),
+                                              dims=1), grads)
+    layout = FlatLayout.of(grads)
+    num = weights @ layout.ravel(grads)
+    return layout.unravel_single(psum_weighted_mean(num, weights.sum(),
+                                                    group))
 
 
 def _map(fn, tree):

@@ -1,6 +1,6 @@
 """Simulation backend — Algorithm 1 with a simulated wall clock, ported
-from the JAX package's ``repro/fl/sim.py`` (sync and async modes, one
-device).
+from the JAX package's ``repro/fl/sim.py`` (sync and async modes on one
+device; sync mode on a mesh of ranks).
 
 Executes the exact 3-layer schedule on stacked UE replicas while the CLOCK
 advances according to the paper's delay model:
@@ -17,6 +17,20 @@ buffer (``repro_torch.fl.flatten``) that stays on the device for the whole
 run.  Local GD updates it in place through per-leaf views; each edge
 (eq. 6) and cloud (eq. 10) event is one kernel launch that writes a fresh
 buffer, which then replaces the old one.
+
+Pass ``mesh=`` (a ``repro_torch.launch.mesh.AggMesh``; sync mode) and the
+run is data-sharded over ``torch.distributed`` ranks, as the reference's
+``shard_map`` run is over devices.  Every rank builds the simulator from
+the same full ``ue_data`` and calls ``run`` in step with the others; it
+keeps only its slab of the padded ``ShardedFlatLayout`` buffer (whole
+edges' UE rows, a column slab) and its rows of the batches, weights and
+group ids (pad rows: row-0 copies with weight 0, trained like any row).
+Under a model axis a rank all-gathers its rows' column slabs before local
+training and keeps its own columns after.  Edge events need no
+collective; each cloud event is one ``weighted_mean`` launch and one
+all-reduce over 'data'.  ``params``, ``global_params`` and the losses are
+global (collectives at eval boundaries), so ``run`` returns the same
+``SimResult`` on every rank.
 
 Async mode (``mode="async"``, beyond the paper): the cloud barrier of
 eq. 34 is dropped.  ``repro_torch.core.events`` simulates each edge's
@@ -36,13 +50,14 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
 from repro_torch.core import delay
 from repro_torch.core.schedule import HFLSchedule
 from repro_torch.device import resolve_device
 from repro_torch.fl import aggregate, clients
-from repro_torch.fl.flatten import FlatLayout
+from repro_torch.fl.flatten import FlatLayout, ShardedFlatLayout
 
 
 @dataclasses.dataclass
@@ -65,7 +80,9 @@ class HFLSimulator:
     """Run Alg. 1 for a schedule over a federated dataset.
 
     loss_fn(params, batch) -> (loss, metrics) — one UE's full-batch loss.
-    ``device=None`` runs on the CUDA card and raises if there is none.
+    ``device=None`` runs on the CUDA card and raises if there is none
+    (under a mesh: on the mesh's device).  ``mesh=`` (sync mode): this
+    rank's ``AggMesh``; see the module docstring.
     """
 
     def __init__(self, schedule: HFLSchedule, loss_fn: Callable,
@@ -88,15 +105,18 @@ class HFLSimulator:
             raise ValueError("max_staleness must be >= 0")
         if solver not in ("gd", "dane"):
             raise ValueError(f"solver must be 'gd' or 'dane', got {solver!r}")
-        if mesh is not None:
-            raise _not_ported("mesh=", "item 13")
+        if mesh is not None and mode == "async":
+            raise _not_ported("mode='async' with mesh= (the staleness "
+                              "merge on a mesh)", "item 13b")
         if delay_model is not None:
             raise _not_ported("delay_model=", "item 8")
         if fault_model is not None:
             raise _not_ported("fault_model=", "item 9")
         if sampler is not None:
             raise _not_ported("sampler=", "item 9")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if mesh is not None and device is None else device)
         self.schedule = schedule
         self.loss_fn = loss_fn
         self.solver = solver
@@ -117,20 +137,13 @@ class HFLSimulator:
             m = d["labels"].shape[0]
             resample.append(rng.choice(m, size=k, replace=m < k)
                             if m != k else np.arange(k))
-        self.batches = {
-            key: torch.as_tensor(np.stack([d[key][ix] for d, ix in
-                                           zip(ue_data, resample)]),
-                                 device=self.device)
-            for key in ue_data[0]
-        }                                            # leaves (N, k, ...)
-
+        batches = {key: np.stack([d[key][ix] for d, ix in
+                                  zip(ue_data, resample)])
+                   for key in ue_data[0]}            # leaves (N, k, ...)
         # Aggregation weights: the paper's D_n (eq. 6/10).
-        w = (schedule.problem.samples if schedule.problem is not None
-             else sizes)
-        self.weights = torch.as_tensor(np.asarray(w, np.float32),
-                                       device=self.device)
-        self.group_ids = torch.as_tensor(
-            schedule.assoc.argmax(1).astype(np.int32), device=self.device)
+        w = np.asarray(schedule.problem.samples if schedule.problem
+                       is not None else sizes, np.float32)
+        gids = schedule.assoc.argmax(1).astype(np.int32)
 
         stacked = _stack(init_params, n, self.device)
         self._layout = FlatLayout.of(stacked)
@@ -139,7 +152,24 @@ class HFLSimulator:
             # only fp32 leaves come back as views
             raise ValueError("init_params leaves must be float32, got "
                              f"{sorted(set(map(str, self._layout.dtypes)))}")
-        self._flat = self._layout.ravel(stacked)
+        # The rows this simulator (rank) trains: all N in original order,
+        # or under a mesh the rank's padded, group-aligned rows.
+        if mesh is None:
+            self._slayout = None
+            self._flat = self._layout.ravel(stacked)
+        else:
+            sl = ShardedFlatLayout.build(self._layout, mesh, n,
+                                         group_ids=gids)
+            self._slayout = sl
+            self._flat = sl.local(sl.ravel(stacked))
+            batches = {k: sl.pad_rows(v)[sl.local_rows]
+                       for k, v in batches.items()}
+            w = sl.pad_weights(w)[sl.local_rows].numpy()
+            gids = sl.pad_rows(gids)[sl.local_rows]
+        self.batches = {k: torch.as_tensor(v, device=self.device)
+                        for k, v in batches.items()}
+        self.weights = torch.as_tensor(w, device=self.device)
+        self.group_ids = torch.as_tensor(gids, device=self.device)
         self._local_gd = clients.gd_local_steps(loss_fn, schedule.a, lr)
         self._local_dane = clients.dane_local_steps(loss_fn, schedule.a, lr,
                                                     mu_prox=dane_mu)
@@ -151,8 +181,34 @@ class HFLSimulator:
 
     @property
     def params(self) -> dict:
-        """Stacked UE replicas, unravelled from the flat buffer."""
-        return self._layout.unravel(self._flat)
+        """Stacked UE replicas, unravelled from the flat buffer.  Under a
+        mesh, every rank's slab is gathered (a collective: every rank must
+        read it) into the global replicas in original row order."""
+        if self.mesh is None:
+            return self._layout.unravel(self._flat)
+        parts = [torch.empty_like(self._flat) for _ in range(self.mesh.size)]
+        dist.all_gather(parts, self._flat.contiguous())
+        nm = self.mesh.num_model
+        full = torch.cat([torch.cat(parts[i:i + nm], 1)
+                          for i in range(0, len(parts), nm)], 0)
+        return self._slayout.unravel(full)
+
+    @property
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+    def _gather_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` with the other model ranks' column slabs beside it (last
+        axis, in model order); ``t`` itself without a model axis."""
+        if self.mesh is None or self.mesh.num_model == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.mesh.num_model)]
+        dist.all_gather(parts, t.contiguous(), group=self.mesh.model_group)
+        return torch.cat(parts, -1)
+
+    def _single_device(self, what: str) -> None:
+        if self.mesh is not None:
+            raise _not_ported(f"{what} with mesh=", "item 13b")
 
     def _edge_rounds(self, flat: torch.Tensor) -> torch.Tensor:
         """b edge rounds on every row of ``flat``: a local steps, written
@@ -160,20 +216,25 @@ class HFLSimulator:
         the eq. 6 edge aggregation."""
         s = self.schedule
         for _ in range(s.b):
-            p = self._layout.unravel(flat)
+            rows = self._gather_cols(flat)
+            p = self._layout.unravel(rows)
             if self.solver == "dane":
                 g_bar = clients.global_gradient(self.loss_fn, p,
-                                                self.batches, self.weights)
+                                                self.batches, self.weights,
+                                                group=self._data_group)
                 self._local_dane(p, self.batches, g_bar)
             else:
                 self._local_gd(p, self.batches)
-            flat = aggregate.flat_edge_aggregate(flat, self.weights,
-                                                 self.group_ids, s.num_edges)
+            if rows is not flat:          # the gathered rows are a copy
+                flat.copy_(rows[:, self._slayout.local_cols])
+            flat = aggregate.flat_edge_aggregate(
+                flat, self.weights, self.group_ids, s.num_edges,
+                mesh=self.mesh)
         return flat
 
     def _cloud_round(self) -> None:
         self._flat = aggregate.flat_cloud_aggregate(
-            self._edge_rounds(self._flat), self.weights)
+            self._edge_rounds(self._flat), self.weights, mesh=self.mesh)
 
     def _depart_cycle(self, g: torch.Tensor, mask: torch.Tensor) -> None:
         """Re-seed the departing rows (``mask``) from the cloud vector
@@ -188,14 +249,26 @@ class HFLSimulator:
                                  self._flat)
 
     def global_params(self) -> dict:
-        """The cloud model: weighted mean over UE replicas (eq. 10)."""
-        w = self.weights / self.weights.sum()
-        return self._layout.unravel_single(w @ self._flat)
+        """The cloud model: weighted mean over UE replicas (eq. 10).  Under
+        a mesh a collective (one all-reduce over 'data', one all-gather
+        over 'model'): every rank must call it."""
+        if self.mesh is None:
+            w = self.weights / self.weights.sum()
+            return self._layout.unravel_single(w @ self._flat)
+        mean = aggregate.psum_weighted_mean(
+            self.weights @ self._flat, self.weights.sum(), self._data_group)
+        return self._layout.unravel_single(self._gather_cols(mean))
 
     def _train_loss(self, gp) -> torch.Tensor:
-        """Weight-averaged train loss over ALL UEs."""
-        w = self.weights / self.weights.sum()
-        return (w * self._per_ue_loss(gp, self.batches)).sum()
+        """Weight-averaged train loss over ALL UEs (under a mesh, each
+        rank's rows' weighted sum, then one all-reduce over 'data')."""
+        losses = self._per_ue_loss(gp, self.batches)
+        if self.mesh is None:
+            w = self.weights / self.weights.sum()
+            return (w * losses).sum()
+        return aggregate.psum_weighted_mean(
+            (self.weights * losses).sum().reshape(1), self.weights.sum(),
+            self._data_group)[0]
 
     def _evaluate(self, gp, test: dict):
         """(test accuracy, test loss, train loss) of the global model."""
@@ -243,6 +316,7 @@ class HFLSimulator:
 
     def cloud_vector(self) -> torch.Tensor:
         """(F,) fp32 cloud model: the weighted mean of the flat buffer."""
+        self._single_device("cloud_vector")
         w = self.weights.cpu().numpy()
         return torch.as_tensor(w / w.sum(), dtype=torch.float32,
                                device=self.device) @ self._flat
@@ -283,16 +357,19 @@ class HFLSimulator:
     def edge_mean_row(self, m: int) -> torch.Tensor:
         """(F,) fp32: edge ``m``'s model right after its cycle's eq. 6
         aggregation (every member row holds the edge mean)."""
+        self._single_device("edge_mean_row")
         idx = int(np.flatnonzero(self.group_ids.cpu().numpy() == int(m))[0])
         return self._flat[idx]
 
     def edge_mass(self, m: int) -> float:
         """Total aggregation weight of edge ``m``'s cohort (float64)."""
+        self._single_device("edge_mass")
         w = self.weights.cpu().numpy().astype(np.float64)
         return float(w[self.group_ids.cpu().numpy() == int(m)].sum())
 
     def hot_rows(self, idx) -> np.ndarray:
         """Host copy of the given flat-buffer rows: (len(idx), F) fp32."""
+        self._single_device("hot_rows")
         idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
         return self._flat[idx].cpu().numpy()
 
@@ -302,11 +379,13 @@ class HFLSimulator:
 
     def flat_state(self) -> np.ndarray:
         """Host copy of the flat buffer (checkpoint payload)."""
+        self._single_device("flat_state")
         return self._flat.cpu().numpy().copy()
 
     def set_flat_state(self, flat) -> None:
         """Restore the flat buffer from a host array, such as the JAX
         package's ``HFLSimulator.flat_state()``."""
+        self._single_device("set_flat_state")
         flat = np.array(flat, np.float32)    # local GD writes in place
         if flat.shape != tuple(self._flat.shape):
             raise ValueError(f"flat buffer shape {flat.shape} does not "

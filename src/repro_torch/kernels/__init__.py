@@ -2,8 +2,9 @@
 
 * ``hier_aggregate`` — eq. 6 edge and eq. 10 cloud aggregation over the
   flat ``(N, F)`` buffer (``csrc/segment_aggregate.cu``,
-  ``csrc/cloud_aggregate.cu``), and the streaming accumulator's per-edge
-  weighted sums (``csrc/segment_sum.cu``).
+  ``csrc/cloud_aggregate.cu``), the reduce-only weighted mean of a data
+  shard's slab (``csrc/weighted_mean.cu``), and the streaming
+  accumulator's per-edge weighted sums (``csrc/segment_sum.cu``).
 * ``flash_attention`` — blocked online-softmax GQA attention with causal
   and sliding-window masks, the prefill attention of the transformer stack
   (``csrc/flash_attention.cu``).

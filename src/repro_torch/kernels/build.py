@@ -18,8 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("segment_aggregate", "cloud_aggregate", "segment_sum",
-           "flash_attention", "rglru_scan", "decode_attention")
+SOURCES = ("segment_aggregate", "cloud_aggregate", "weighted_mean",
+           "segment_sum", "flash_attention", "rglru_scan", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,5 @@
 """Hierarchical weighted aggregation (eqs. 6/10) on the flat ``(N, F)``
-buffer: the wrappers of the three CUDA kernels and their plain versions.
+buffer: the wrappers of the four CUDA kernels and their plain versions.
 
 * ``segment_aggregate`` — edge aggregation (eq. 6): per-edge weighted
   segment mean fused with the scatter-back to the members' rows.  Kernel
@@ -8,6 +8,10 @@ buffer: the wrappers of the three CUDA kernels and their plain versions.
 * ``cloud_aggregate``   — cloud aggregation (eq. 10): the global weighted
   mean fused with the broadcast-back.  Kernel ``csrc/cloud_aggregate.cu``;
   replaces ``hier_bcast_aggregate_2d`` (``hier_aggregate.py:117``).
+* ``weighted_mean``     — the reduce-only weighted mean ``(N, F) -> (F,)``:
+  each data shard's local step of the sharded cloud event.  Kernel
+  ``csrc/weighted_mean.cu``; replaces ``hier_aggregate_2d``
+  (``hier_aggregate.py:62``).
 * ``segment_sum``       — the chunk step of the streaming edge accumulator:
   per-edge weighted sums of a chunk of rows, added into an ``(M, F)``
   accumulator.  Kernel ``csrc/segment_sum.cu``; replaces
@@ -40,9 +44,21 @@ MAX_GROUPS = SMEM_BYTES // (4 * (TILE + 1))
 #: ``MIN_SLICE_ROWS`` rows each.
 BLOCKS_PER_SM = 4
 MIN_SLICE_ROWS = 64
+#: ``weighted_mean``'s slice rule aims at this many blocks per SM: about
+#: six waves of the ten 128-thread blocks an SM holds at once (48
+#: registers a thread), so that a last, partial wave costs little.  At a
+#: 16,384 x 44,426 shard, 4 slices (1,392 blocks: one wave and 72 blocks)
+#: were slower than 3 or than 7 and more (``chip_smoke.py`` phase 2 times
+#: the rule's choice against other slice counts on every run).
+MEAN_BLOCKS_PER_SM = 64
+#: Fewest rows in a ``weighted_mean`` slice (at 16,384 x 1,024, 128-row
+#: slices beat 64-row ones), and most slices: the combine pass adds a
+#: column's slices one after another.
+MEAN_MIN_SLICE_ROWS = 128
+MEAN_MAX_SLICES = 1024
 
 launch_counts = {"segment_aggregate": 0, "cloud_aggregate": 0,
-                 "segment_sum": 0}
+                 "segment_sum": 0, "weighted_mean": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -52,6 +68,7 @@ _ARGTYPES = {
     "cloud_aggregate": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
     "segment_sum": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _I64, _INT, _INT,
                     _INT, _P],
+    "weighted_mean": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _INT, _P],
 }
 
 
@@ -117,6 +134,10 @@ def cloud_aggregate_plain(x, w):
     return mean[None].expand(x.shape).contiguous()
 
 
+def weighted_mean_plain(x, w):
+    return (w[:, None] * x.to(torch.float32)).sum(0) / w.sum()
+
+
 def segment_sum_plain(x, w, group_ids, num_groups: int):
     return torch.zeros(num_groups, x.shape[1], dtype=torch.float32,
                        device=x.device).index_add_(
@@ -158,6 +179,40 @@ def cloud_aggregate(x, w):
         _launch("cloud_aggregate", x.data_ptr(), w.data_ptr(),
                 out.data_ptr(), x.shape[0], x.shape[1],
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def weighted_mean_slices(n_rows: int, n_cols: int):
+    """``(slices, rows per slice)`` that ``weighted_mean`` splits the rows
+    into: enough slices for about ``MEAN_BLOCKS_PER_SM`` blocks per SM with
+    one block per column tile and slice, at least ``MEAN_MIN_SLICE_ROWS``
+    rows each and at most ``MEAN_MAX_SLICES`` slices.  One slice when the
+    column tiles alone fill the card."""
+    tiles = -(-n_cols // TILE)
+    slices = max(1, min(-(-MEAN_BLOCKS_PER_SM * NUM_SMS // tiles),
+                        n_rows // MEAN_MIN_SLICE_ROWS, MEAN_MAX_SLICES))
+    rows = -(-n_rows // slices)
+    rows = max(ROWS, -(-rows // ROWS) * ROWS)
+    return max(1, -(-n_rows // rows)), rows
+
+
+def weighted_mean(x, w):
+    """Weighted mean over the rows.  x: (N, F) fp32|bf16, w: (N,) fp32 ->
+    (F,) fp32 ``sum_n w_n x_n / sum_n w_n``.  No guard: all-zero weights
+    give 0/0 = NaN, as in the reference."""
+    _check(x, w)
+    if x.device.type == "cpu":
+        return weighted_mean_plain(x, w)
+    n, f = x.shape
+    out = torch.empty(f, dtype=torch.float32, device=x.device)
+    if f:
+        slices, rows = weighted_mean_slices(n, f)
+        partial = (torch.empty(slices * (f + 1), dtype=torch.float32,
+                               device=x.device) if slices > 1 else None)
+        _launch("weighted_mean", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                None if partial is None else partial.data_ptr(), n, f, rows,
+                slices, int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
     return out
 

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (``segment_aggregate``, ``cloud_aggregate``,
-``segment_sum``, ``flash_attention``, ``rglru_scan``,
+``weighted_mean``, ``segment_sum``, ``flash_attention``, ``rglru_scan``,
 ``decode_attention``) against their plain PyTorch versions, on the card.
 Imports only torch and numpy, so it runs on a GPU machine without JAX:
 PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
@@ -112,6 +112,50 @@ def test_cuda_segment_sum_matches_plain_version(cuda, name):
         assert (out[2] == 0).all()
     if edit == "zero_weight_group":
         assert (out[1] == 0).all()
+
+
+# name -> (N, F, dtype, edit of the weights)
+MEAN_CASES = {
+    "one_row": (1, 1001, torch.float32, None),
+    "n513_past_tpu_split": (513, 1001, torch.float32, None),
+    "ragged_f37": (600, 37, torch.float32, None),
+    "n1030_ragged": (1030, 64, torch.float32, None),
+    "one_nonzero_weight": (300, 1001, torch.float32, "one_nonzero"),
+    "all_zero_weights": (40, 300, torch.float32, "all_zero"),
+    "bf16": (513, 1001, torch.bfloat16, None),
+    "path_slab": (60, 44_426, torch.float32, None),
+    "many_rows_few_cols": (16_384, 1024, torch.float32, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MEAN_CASES))
+def test_cuda_weighted_mean_matches_plain_version(cuda, name):
+    n, f, dtype, edit = MEAN_CASES[name]
+    rng = np.random.default_rng(len(name))
+    x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    if edit == "one_nonzero":
+        w[:] = 0.0
+        w[n // 2] = 3.0
+    if edit == "all_zero":
+        w[:] = 0.0
+    x, w = x.to(cuda, dtype), w.to(cuda)
+    before = ha.launch_counts["weighted_mean"]
+    out = ha.weighted_mean(x, w)
+    again = ha.weighted_mean(x, w)
+    torch.cuda.synchronize()
+    assert ha.launch_counts["weighted_mean"] == before + 2
+    ref = ha.weighted_mean_plain(x, w)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (f,)
+    assert torch.equal(out.isnan(), ref.isnan())
+    if edit == "all_zero":                  # 0/0, as in the reference
+        assert out.isnan().all()
+        return
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(out, again)          # no atomics: run to run equal
+    if edit == "one_nonzero":
+        assert (out - x[n // 2].float()).abs().max() <= 1e-6 * ref.abs().max()
 
 
 # B, Sq, Sk, H, K, hd, causal, window, dtype, layout

@@ -127,7 +127,8 @@ def _small_sim_args():
 
 @pytest.mark.parametrize("kw", [
     {"mode": "async", "delay_model": object()},
-    {"solver": "dane", "sampler": object()}, {"mesh": object()},
+    {"solver": "dane", "sampler": object()},
+    {"mode": "async", "mesh": object()},
     {"delay_model": object()}, {"fault_model": object()},
     {"sampler": object()}])
 def test_unported_features_raise(kw):
