@@ -12,7 +12,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    median of 100 launches, L2 flushed before each) beside its plain
    version, one PyTorch library call (where one computes the same
    function) and its bound.  ``flash_attention`` at the prefill shapes of
-   phases 7 and 8, ``decode_attention`` at their decode shapes (and with
+   phases 7 and 8 and of the serving CLI (beside masked SDPA, SDPA with
+   ``is_causal=True`` and with ``enable_gqa=True`` where there is no window;
+   with every warps-per-block count, its rule's among them; its build must
+   show no register spill),
+   ``decode_attention`` at their decode shapes (and with
    half and twice its rule's split count), ``weighted_mean`` at phase 9's
    slab and at a fleet-scale shard (and with half and twice its rule's
    row slices).
@@ -144,6 +148,8 @@ CPU_STEPS = 4                     # teacher-forced decode steps, card vs CPU
 # only in the order of their sums; a masking or indexing fault moves the
 # logits by percents of their scale, orders of magnitude past that.
 ATTN_ATOL = 2e-5             # tests/test_kernels.py's attention tolerance
+FA_INSTANTIATIONS = 6        # flash_attention.cu: head dims 64/128/256 x
+                             # fp32/bf16
 # Phase 8: full-width ChatGLM3-6B serving (B, prompt and tokens as phase
 # 7), and the serving CLI's default model at the CLI's default sizes.
 GLM_ARCH = "chatglm3-6b"
@@ -229,9 +235,25 @@ def phase_device() -> None:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check_no_spill(paths["flash_attention"])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
+
+
+def check_no_spill(path) -> None:
+    """Every kernel of the library at ``path`` compiled without spilling:
+    ptxas (``-Xptxas -v``) reports 0 bytes of spill stores and loads for
+    each of its FA_INSTANTIATIONS instantiations."""
+    lines = [ln.strip() for ln in path.with_suffix(".log").read_text()
+             .splitlines() if "spill" in ln]
+    check(len(lines) >= FA_INSTANTIATIONS, f"{path.name}: {len(lines)} "
+          f"ptxas spill lines, expected {FA_INSTANTIATIONS}")
+    spilled = [ln for ln in lines
+               if "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(not spilled, f"{path.name} spills: {spilled}")
+    print(f"  flash_attention: ptxas reports no spill in any of its "
+          f"{len(lines)} kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -610,11 +632,14 @@ def time_mean_slice_rule(x, w) -> None:
 
 # B, Sq, Sk, H, K, hd, causal, window: tests/test_kernels.py's ATTN_CASES,
 # then MQA at head_dim 256 under a window, ragged Sq < Sk, a first key tile
-# fully masked for most rows of a query tile, two non-causal cases, and the
-# prefill shapes of phases 7 and 8.
+# fully masked for most rows of a query tile, two non-causal cases, groups
+# of 6 and 16 that do not fill a block's rows evenly, one query row at
+# g = 16, head_dim 4, a window under one key tile, and the prefill shapes
+# of phases 7 and 8 and of the serving CLI's default run.
 ATTN_SERVING = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 1, 256, True,
                 2048)
 ATTN_GLM = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 2, 128, True, 0)
+ATTN_CLI = (CLI_BATCH, CLI_PROMPT, CLI_PROMPT, 32, 32, 64, True, 0)
 ATTN_CASES = [
     (2, 128, 128, 8, 4, 64, True, 0),
     (1, 256, 256, 4, 4, 32, True, 64),
@@ -629,8 +654,15 @@ ATTN_CASES = [
     (1, 256, 256, 4, 1, 64, True, 40),
     (2, 200, 200, 8, 2, 64, False, 0),
     (1, 70, 300, 4, 1, 100, False, 0),
+    (2, 100, 100, 12, 2, 128, True, 0),
+    (1, 90, 90, 12, 2, 64, True, 20),
+    (1, 50, 300, 16, 1, 128, True, 0),
+    (2, 1, 200, 16, 1, 256, True, 64),
+    (1, 40, 40, 4, 2, 4, True, 0),
+    (1, 200, 200, 8, 2, 64, True, 7),
     ATTN_SERVING,
     ATTN_GLM,
+    ATTN_CLI,
 ]
 # B, S, D: tests/test_kernels.py's RGLRU_CASES, then the serving shape
 SCAN_SERVING = (SERVE_BATCH, SERVE_PROMPT, 4096)
@@ -649,20 +681,25 @@ def attn_inputs(case, dtype=torch.float32):
 
 def check_attention_against_plain() -> float:
     """``flash_attention`` on each case against its plain version (fp32
-    within ATTN_ATOL; one bf16 case within 2 bf16 ulps of the largest
-    value); returns the largest fp32 absolute error."""
+    within ATTN_ATOL; two bf16 cases within 2 bf16 ulps of the largest
+    value) and bit for bit between two launches; returns the largest fp32
+    absolute error."""
     worst = 0.0
-    for case in ATTN_CASES + [(2, 128, 128, 8, 4, 64, True, 0, "bf16")]:
+    for case in ATTN_CASES + [(2, 128, 128, 8, 4, 64, True, 0, "bf16"),
+                              (1, 300, 300, 16, 1, 256, True, 128, "bf16")]:
         causal, window = case[6], case[7]
         bf16 = case[-1] == "bf16"
         q, k, v = attn_inputs(case, torch.bfloat16 if bf16 else torch.float32)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
         ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         check(out.shape == q.shape and out.dtype == q.dtype,
               f"flash_attention {case}: dtype/shape")
         check(bool(torch.isfinite(out).all()), f"flash_attention {case}: "
               "finite")
+        check(torch.equal(out, again), f"flash_attention {case}: two "
+              "launches differ")
         err = _max_err(out.float(), ref.float())
         scale = float(ref.float().abs().max())
         tol = 2 * 2 ** -8 * scale if bf16 else ATTN_ATOL
@@ -723,41 +760,96 @@ def expand_heads(t, heads: int):
         B, K, heads // K, S, hd).reshape(B, heads, S, hd)
 
 
+def attention_yardsticks(q, k, v, causal: bool, window: int) -> dict:
+    """name -> one ``scaled_dot_product_attention`` call computing
+    ``flash_attention``'s function, in the (B, Sq, H, hd) layout: with the
+    boolean mask and the KV heads expanded (a copy made before the timed
+    call); without a window, also with ``is_causal=True`` (no mask tensor,
+    so the dead tiles can be skipped) on the expanded heads and, where this
+    PyTorch takes it on the card, on the KV heads as they are with
+    ``enable_gqa=True``."""
+    S, H = q.shape[1], q.shape[2]
+    mask = fa.attention_mask(S, k.shape[1], causal, window, "cuda")
+    qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = {"sdpa_mask": lambda: sdpa(qt, kt, vt,
+                                       attn_mask=mask).transpose(1, 2)}
+    if causal and window <= 0 and S == k.shape[1]:
+        calls["sdpa_is_causal"] = lambda: sdpa(
+            qt, kt, vt, is_causal=True).transpose(1, 2)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        try:
+            sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+            torch.cuda.synchronize()
+            calls["sdpa_is_causal_gqa"] = lambda: sdpa(
+                qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
+        except (TypeError, RuntimeError) as e:
+            print(f"  {'flash_attention':17s} sdpa enable_gqa=True not "
+                  f"taken: {type(e).__name__}: {str(e)[:120]}")
+    return calls
+
+
 def time_attention(case) -> dict:
-    """``flash_attention`` at a serving shape, its plain version and the
-    library yardstick (``scaled_dot_product_attention`` with the same
-    boolean mask, the KV heads expanded), and its bound from the unmasked
-    (query, key) pairs of this shape."""
+    """``flash_attention`` at a serving shape, its plain version, the
+    library yardsticks (``attention_yardsticks``, each checked against the
+    plain version; ``library_ms`` is the fastest), and its bound from the
+    unmasked (query, key) pairs of this shape."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, S, _, H, K, hd, causal, window = case
     q, k, v = attn_inputs(case)
-    mask = fa.attention_mask(S, S, causal, window, "cuda")
-    qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def library():
-        return sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2)
-
+    calls = attention_yardsticks(q, k, v, causal, window)
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    lib_err = _max_err(library(), ref)
-    print(f"  {'flash_attention':17s} scaled_dot_product_attention vs plain "
-          f"max|err| {lib_err:.3e}")
-    check(lib_err <= 1e-3, "scaled_dot_product_attention computes the "
-          "same function")
+    for name, call in calls.items():
+        lib_err = _max_err(call(), ref)
+        print(f"  {'flash_attention':17s} {name} vs plain max|err| "
+              f"{lib_err:.3e}")
+        check(lib_err <= 1e-3, f"{name} computes the same function")
     del ref
-    pairs = int(mask.sum()) * B * H
+    iters = 10 if S > 256 else 100     # the CLI's prompt: microseconds
+    lib = {name: time_ms(call, flush, iters, 2)
+           for name, call in calls.items()}
+    fastest = min(lib, key=lib.get)
+    pairs = int(fa.attention_mask(S, S, causal, window, "cuda").sum()) * B * H
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     r = dict(ms=time_ms(lambda: fa.flash_attention(
-                 q, k, v, causal=causal, window=window), flush, 10, 2),
+                 q, k, v, causal=causal, window=window), flush, iters, 2),
              plain_ms=time_ms(lambda: fa.flash_attention_plain(
-                 q, k, v, causal=causal, window=window), flush, 5, 1),
-             library_ms=time_ms(library, flush, 10, 2),
-             **bound(nbytes, 4 * hd * pairs))
+                 q, k, v, causal=causal, window=window), flush, iters // 2,
+                 1),
+             library_ms=lib[fastest], **bound(nbytes, 4 * hd * pairs))
     print(f"  {'flash_attention':17s} {'-'.join(map(str, case))}: "
-          f"kernel {r['ms']:.3f} ms   plain {r['plain_ms']:.3f} ms   sdpa "
-          f"{r['library_ms']:.3f} ms   bound {r['bound_ms']:.3f} ms "
-          f"({r['bound_by']}: {pairs} unmasked pairs, {nbytes} B)")
+          f"kernel {r['ms']:.3f} ms   plain {r['plain_ms']:.3f} ms   "
+          + "   ".join(f"{n} {t:.3f} ms" for n, t in lib.items())
+          + f"   bound {r['bound_ms']:.3f} ms ({r['bound_by']}: {pairs} "
+          f"unmasked pairs, {nbytes} B); kernel/bound "
+          f"{r['ms'] / r['bound_ms']:.2f}, kernel/{fastest} "
+          f"{r['ms'] / r['library_ms']:.2f}")
     return r
+
+
+def time_warps_rule(case) -> None:
+    """``flash_attention`` with every warps-per-block count the kernel
+    takes (``min_warps`` to ``MAX_WARPS``; a block's rows are
+    ``rows_per_warp`` x warps) on the same inputs, the rule's choice
+    (``attention_warps``) among them with its half and its double where
+    those exist, so that the rule is checked on every run.  Twice 8 warps
+    is past the kernel's 256-thread bound."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    B, S, _, H, K, hd, causal, window = case
+    q, k, v = attn_inputs(case)
+    chosen = fa.attention_warps(B, S, H, K, hd)
+    times = []
+    for w in (1, 2, 4, 8):
+        if not fa.min_warps(hd) <= w <= fa.MAX_WARPS:
+            continue
+        with mock.patch.object(fa, "attention_warps", lambda *_, w=w: w):
+            times.append((w, time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=window), flush,
+                10 if S > 256 else 100, 2)))
+    print(f"  {'flash_attention':17s} {'-'.join(map(str, case))} warps: "
+          + ", ".join(f"{w} ({fa.rows_per_warp(hd) * w} rows) -> "
+                      f"{t:.3f} ms" for w, t in times)
+          + f" (the rule picks {chosen})")
 
 
 def time_scan() -> dict:
@@ -1568,6 +1660,9 @@ def main() -> int:
     errs["flash_attention"] = check_attention_against_plain()
     timing["flash_attention"] = time_attention(ATTN_SERVING)
     time_attention(ATTN_GLM)
+    time_attention(ATTN_CLI)
+    for case in (ATTN_SERVING, ATTN_GLM, ATTN_CLI):
+        time_warps_rule(case)
     errs["rglru_scan"] = check_scan_against_plain()
     timing["rglru_scan"] = time_scan()
     errs["decode_attention"] = check_decode_against_plain()

@@ -13,6 +13,10 @@ A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  ``launch_counts`` counts the launches, so a run can
 show that its attention layers went through the kernel.
+
+On the card a block serves the whole query group of one (batch, KV head):
+its rows are consecutive (query position, head) pairs, ``rows_per_warp``
+a warp, and ``attention_warps`` picks its warps.
 """
 from __future__ import annotations
 
@@ -22,9 +26,13 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.hier_aggregate import NUM_SMS
 
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
+KEY_TILE = 64                  # keys per K/V tile of the kernel
+#: Warps per block at most (256 threads, the kernel's launch bound).
+MAX_WARPS = 8
 
 launch_counts = {"flash_attention": 0}
 
@@ -32,12 +40,60 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P] + [_I64] * 15 + [_INT, _I64, _I64, _INT, _INT,
-                                              _P]
+                                              _INT, _P]
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def head_dim_class(hd: int) -> int:
+    """The kernel's instantiation for head dim ``hd``: 64, 128 or 256 (the
+    smallest that holds it; the extra columns are zeros)."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
+def rows_per_warp(hd: int) -> int:
+    """Query rows of a warp (row groups x rows a lane): 4 x 4 at head dims
+    up to 64, 2 x 8 up to 128, 2 x 4 up to 256."""
+    return {64: 16, 128: 16, 256: 8}[head_dim_class(hd)]
+
+
+def attention_smem_bytes(hd: int, warps: int) -> int:
+    """Shared memory of one block of ``warps`` warps, as the kernel lays it
+    out: Q ``[R][HD + 4]`` (``R = rows_per_warp * warps``), a K and a V
+    buffer ``[KEY_TILE][HD + 4]``, one P buffer ``[KEY_TILE][rows_per_warp
+    + 4]`` per warp; fp32."""
+    c, rpw = head_dim_class(hd), rows_per_warp(hd)
+    return 4 * (rpw * warps * (c + 4) + 2 * KEY_TILE * (c + 4)
+                + warps * KEY_TILE * (rpw + 4))
+
+
+def attention_blocks(batch: int, sq: int, heads: int, kv_heads: int,
+                     hd: int, warps: int) -> int:
+    """Blocks of one launch: ``ceil(Sq * g / R)`` row tiles per (batch, KV
+    head)."""
+    rows = rows_per_warp(hd) * warps
+    return -(-sq * (heads // kv_heads) // rows) * batch * kv_heads
+
+
+def min_warps(hd: int) -> int:
+    """The fewest warps a block takes: its threads must be a multiple of
+    the ``HD / 4`` float4s of a K/V row (2 warps at head dims above 128)."""
+    return 2 if head_dim_class(hd) == 256 else 1
+
+
+def attention_warps(batch: int, sq: int, heads: int, kv_heads: int,
+                    hd: int) -> int:
+    """Warps per block: the most, up to ``MAX_WARPS``, whose launch still
+    has ``NUM_SMS`` blocks; ``min_warps`` when none has.  Fewer warps mean
+    fewer rows a block, so short prompts still spread over the card."""
+    w = MAX_WARPS
+    while w > min_warps(hd) and attention_blocks(batch, sq, heads, kv_heads,
+                                                 hd, w) < NUM_SMS:
+        w //= 2
+    return w
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int, device=None):
@@ -115,12 +171,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return out
     if Sk == 0:
         raise ValueError("attention over no keys")
+    if max(Sq, Sk) + abs(Sk - Sq) >= 2**31:
+        raise ValueError(f"Sq = {Sq}, Sk = {Sk}: positions past an int32")
     err = build.load("flash_attention", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Sk, H, K, hd, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(causal), int(window), Sk - Sq,
-        int(q.dtype == torch.bfloat16), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        attention_warps(B, Sq, H, K, hd), int(q.dtype == torch.bfloat16),
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

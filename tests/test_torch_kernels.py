@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
 
 # name -> (N, F, M, dtype, edit of the inputs)
@@ -188,6 +189,22 @@ ATTN_CASES = {
     "strided_views": (2, 96, 96, 8, 2, 64, True, 32, torch.float32, "fused"),
     # the serving shape of full-width RecurrentGemma-9B
     "serving": (2, 4096, 4096, 16, 1, 256, True, 2048, torch.float32, None),
+    # ChatGLM3-6B's serving prefill and StableLM-1.6B's CLI prefill (MHA)
+    "chatglm3": (2, 4096, 4096, 32, 2, 128, True, 0, torch.float32, None),
+    "stablelm_cli": (4, 64, 64, 32, 32, 64, True, 0, torch.float32, None),
+    # g = 6 divides no block's row count (a power of 2, 8 to 128)
+    "group_6_hd128": (2, 100, 100, 12, 2, 128, True, 0, torch.float32,
+                      None),
+    "group_6_hd64": (1, 90, 90, 12, 2, 64, True, 20, torch.float32, None),
+    # g = 16 with ragged Sq < Sk; one query row at g = 16
+    "g16_ragged_sq_lt_sk": (1, 50, 300, 16, 1, 128, True, 0, torch.float32,
+                            None),
+    "g16_sq_1": (2, 1, 200, 16, 1, 256, True, 64, torch.float32, None),
+    "hd_4": (1, 40, 40, 4, 2, 4, True, 0, torch.float32, None),
+    # a window of 7 keys, under one key tile
+    "window_7": (1, 200, 200, 8, 2, 64, True, 7, torch.float32, None),
+    "bf16_hd256": (1, 300, 300, 16, 1, 256, True, 128, torch.bfloat16,
+                   None),
 }
 
 
@@ -225,6 +242,43 @@ def test_cuda_flash_attention_matches_plain_version(cuda, name):
     tol = 2e-5 if dtype == torch.float32 else 2 * 2 ** -8 * ref.abs().max()
     assert err <= tol
     assert torch.equal(out, again)
+
+
+SMEM_PER_BLOCK = 232_448     # shared memory a block can take on an H100
+
+
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_flash_attention_tile_rule_fits_every_config(arch):
+    """For each config's head dim and group: a block at the most warps
+    fits the card's shared memory, and the rule's warps at a prompt of
+    4,096 at B = 2 give the card a block per SM."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    assert fa.attention_smem_bytes(hd, fa.MAX_WARPS) <= SMEM_PER_BLOCK
+    w = fa.attention_warps(2, 4096, h, kv, hd)
+    assert w in (1, 2, 4, 8)
+    assert fa.attention_blocks(2, 4096, h, kv, hd, w) >= fa.NUM_SMS
+
+
+# B, Sq, H, K, hd: the prefill shapes of RecurrentGemma-9B and ChatGLM3-6B
+# in serving, and of StableLM-1.6B in the serving CLI's default run.
+SERVING_PREFILLS = {"recurrentgemma": (2, 4096, 16, 1, 256),
+                    "chatglm3": (2, 4096, 32, 2, 128),
+                    "stablelm_cli": (4, 64, 32, 32, 64)}
+
+
+@pytest.mark.parametrize("name", sorted(SERVING_PREFILLS))
+def test_flash_attention_tile_rule_fills_the_card(name):
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, K, hd = SERVING_PREFILLS[name]
+    w = fa.attention_warps(B, Sq, H, K, hd)
+    assert fa.attention_blocks(B, Sq, H, K, hd, w) >= fa.NUM_SMS
+    assert fa.attention_smem_bytes(hd, w) <= SMEM_PER_BLOCK
+    if name != "stablelm_cli":          # the full prompts take full blocks
+        assert w == fa.MAX_WARPS
+        assert fa.attention_blocks(B, Sq, H, K, hd, w) >= 1024
 
 
 # B, S, D, dtype, chunks (None: the wrapper's rule)
