@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit, the CUDA kernels built from
-   ``src/repro_torch/kernels/csrc`` (build seconds), TF32 off.
+   ``src/repro_torch/kernels/csrc`` (build seconds; ptxas's registers and
+   spills of every kernel; no spill in ``flash_attention`` and
+   ``decode_attention``), TF32 off.
 2. Kernels against their plain PyTorch versions on the card, at the
    paths' shapes and at the edge cases; each kernel timed (CUDA events,
    median of 100 launches, L2 flushed before each) beside its plain
@@ -16,8 +18,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``is_causal=True`` and with ``enable_gqa=True`` where there is no window;
    with every warps-per-block count, its rule's among them; its build must
    show no register spill),
-   ``decode_attention`` at their decode shapes (and with
-   half and twice its rule's split count), ``weighted_mean`` at phase 9's
+   ``decode_attention`` at the decode shapes of phases 7 and 8 and of
+   the serving CLI (beside masked SDPA on expanded heads and with
+   ``enable_gqa=True``; with half and twice its rule's split count),
+   ``weighted_mean`` at phase 9's
    slab and at a fleet-scale shard (and with half and twice its rule's
    row slices).
 3. The main path at full width: ``plan()`` on the paper's 5-edge,
@@ -40,7 +44,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    B=2, a 4,096-token prompt (twice the 2,048 window) and 32 greedy
    tokens; then the same model step by step: 12 ``flash_attention`` and
    26 ``rglru_scan`` launches in prefill, 12 ``decode_attention`` launches
-   per decode step; a profiled prefill and decode step; the kernel route
+   per decode step; a profiled prefill and decode step (device time and
+   kernel count by kernel); the kernel route
    against the plain route (``impl="naive"``) on prefill and
    teacher-forced decode logits, within a multiple of the plain route's
    spread under a 1e-7 perturbation of the embedding; one pattern cycle
@@ -150,6 +155,8 @@ CPU_STEPS = 4                     # teacher-forced decode steps, card vs CPU
 ATTN_ATOL = 2e-5             # tests/test_kernels.py's attention tolerance
 FA_INSTANTIATIONS = 6        # flash_attention.cu: head dims 64/128/256 x
                              # fp32/bf16
+DA_INSTANTIATIONS = 12       # decode_attention.cu: head dims 64/128/256 x
+                             # 1 or 2 m-tiles x fp32/bf16
 # Phase 8: full-width ChatGLM3-6B serving (B, prompt and tokens as phase
 # 7), and the serving CLI's default model at the CLI's default sizes.
 GLM_ARCH = "chatglm3-6b"
@@ -235,25 +242,27 @@ def phase_device() -> None:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    check_no_spill(paths["flash_attention"])
+    check_no_spill(paths["flash_attention"], FA_INSTANTIATIONS)
+    check_no_spill(paths["decode_attention"], DA_INSTANTIATIONS)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
 
 
-def check_no_spill(path) -> None:
+def check_no_spill(path, instantiations: int) -> None:
     """Every kernel of the library at ``path`` compiled without spilling:
     ptxas (``-Xptxas -v``) reports 0 bytes of spill stores and loads for
-    each of its FA_INSTANTIATIONS instantiations."""
+    each of its ``instantiations``."""
     lines = [ln.strip() for ln in path.with_suffix(".log").read_text()
              .splitlines() if "spill" in ln]
-    check(len(lines) >= FA_INSTANTIATIONS, f"{path.name}: {len(lines)} "
-          f"ptxas spill lines, expected {FA_INSTANTIATIONS}")
+    name = path.name.split("-")[0]
+    check(len(lines) >= instantiations, f"{path.name}: {len(lines)} "
+          f"ptxas spill lines, expected {instantiations}")
     spilled = [ln for ln in lines
                if "0 bytes spill stores, 0 bytes spill loads" not in ln]
     check(not spilled, f"{path.name} spills: {spilled}")
-    print(f"  flash_attention: ptxas reports no spill in any of its "
-          f"{len(lines)} kernels")
+    print(f"  {name}: ptxas reports no spill in any of its {len(lines)} "
+          f"kernels")
 
 
 # ---------------------------------------------------------------------------
@@ -879,10 +888,12 @@ def time_scan() -> dict:
 # DECODE_CASES, its ring-wrapped case, an empty cache, a view [l] of a
 # stacked (L, B, W, 2, K, hd) cache, then the decode shapes of phases 7
 # (the ring full) and 8 (4,097 of 8,192 slots written) and of the CLI's
-# default model.
+# default model, then the most query heads a KV head, a head dim that is
+# not a multiple of 8 and more (batch, KV head) pairs than SMs.
 DECODE_SERVING = (SERVE_BATCH, 2048, 16, 1, 256, SERVE_PROMPT, 2048, "ring")
 DECODE_GLM = (SERVE_BATCH, 2 * SERVE_PROMPT, 32, 2, 128, SERVE_PROMPT, 0,
               "prefix")
+DECODE_CLI = (CLI_BATCH, 2 * CLI_PROMPT, 32, 32, 64, CLI_PROMPT, 0, "prefix")
 DECODE_CASES = [
     (2, 256, 8, 4, 64, 100, 0, "prefix"),
     (1, 300, 4, 2, 32, 299, 0, "prefix"),
@@ -893,7 +904,10 @@ DECODE_CASES = [
     (2, 96, 8, 2, 32, 71, 64, "stacked"),
     DECODE_SERVING,
     DECODE_GLM,
-    (CLI_BATCH, 2 * CLI_PROMPT, 32, 32, 64, CLI_PROMPT, 0, "prefix"),
+    DECODE_CLI,
+    (2, 512, 64, 2, 128, 300, 0, "prefix"),        # 32 heads a KV head
+    (2, 200, 12, 3, 100, 150, 0, "prefix"),        # a padded head dim
+    (300, 64, 4, 2, 32, 40, 0, "prefix"),          # 600 (batch, KV head) pairs
 ]
 
 
@@ -958,55 +972,81 @@ def check_decode_against_plain() -> float:
             worst = max(worst, err)
         splits, per = da.decode_splits(case[0] * case[3], case[1])
         print(f"  {'decode_attention':17s} {name:32s} max|err| {err:.3e} "
-              f"(scale {scale:.3e}; {splits} splits of {per} tiles)")
+              f"(scale {scale:.3e}; {splits} splits of at most {per} "
+              f"tiles)")
     return worst
+
+
+def decode_yardsticks(q, k, v, mask) -> dict:
+    """name -> one ``scaled_dot_product_attention`` call computing
+    ``decode_attention``'s function with the valid-slot boolean mask: on
+    the KV heads expanded to the query heads (a copy made before the timed
+    call) and, where this PyTorch takes it on the card, on the KV heads as
+    they are with ``enable_gqa=True``."""
+    H = q.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    m = mask[None, None, None]
+    qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
+    calls = {"sdpa_expanded": lambda: sdpa(qt, kt, vt,
+                                           attn_mask=m).transpose(1, 2)}
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        sdpa(qh, kh, vh, attn_mask=m, enable_gqa=True)
+        torch.cuda.synchronize()
+        calls["sdpa_enable_gqa"] = lambda: sdpa(
+            qh, kh, vh, attn_mask=m, enable_gqa=True).transpose(1, 2)
+    except (TypeError, RuntimeError) as e:
+        print(f"  {'decode_attention':17s} sdpa enable_gqa=True not taken: "
+              f"{type(e).__name__}: {str(e)[:120]}")
+    return calls
 
 
 def time_decode(case) -> dict:
     """``decode_attention`` at a serving decode shape, its plain version,
-    the library yardstick (``scaled_dot_product_attention`` with the
-    valid-slot boolean mask, the KV heads expanded) and its bound from the
+    the library yardsticks (``decode_yardsticks``, each checked against the
+    plain version; ``library_ms`` is the fastest) and its bound from the
     slots that count in this input: their K and V rows, q and the output
     (fp32), slot_pos and pos."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, W, H, K, hd, _, window, _ = case
     q, k, v, sp, pos = decode_inputs(case)
     mask = da.valid_slots(sp, pos, window)
-    qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def library():
-        return sdpa(qt, kt, vt, attn_mask=mask[None, None, None]).transpose(
-            1, 2)
-
+    calls = decode_yardsticks(q, k, v, mask)
     ref = da.decode_attention_plain(q, k, v, sp, pos, window=window)
-    lib_err = _max_err(library(), ref)
-    print(f"  {'decode_attention':17s} scaled_dot_product_attention vs "
-          f"plain max|err| {lib_err:.3e}")
-    check(lib_err <= 1e-4, "scaled_dot_product_attention computes the "
-          "same function")
+    for name, call in calls.items():
+        lib_err = _max_err(call(), ref)
+        print(f"  {'decode_attention':17s} {name} vs plain max|err| "
+              f"{lib_err:.3e}")
+        check(lib_err <= 1e-4, f"{name} computes the same function")
+    lib = {name: time_ms(call, flush) for name, call in calls.items()}
+    fastest = min(lib, key=lib.get)
     n_valid = int(mask.sum())
     nbytes = 4 * (2 * B * K * hd * n_valid + 2 * q.numel() + W + 1)
     r = dict(ms=time_ms(lambda: da.decode_attention(
                  q, k, v, sp, pos, window=window), flush),
              plain_ms=time_ms(lambda: da.decode_attention_plain(
                  q, k, v, sp, pos, window=window), flush),
-             library_ms=time_ms(library, flush),
+             library_ms=lib[fastest],
              **bound(nbytes, 4 * B * H * hd * n_valid))
     splits, per = da.decode_splits(B * K, W)
     print(f"  {'decode_attention':17s} {'-'.join(map(str, case))}: "
           f"kernel {r['ms'] * 1e3:.2f} us   plain {r['plain_ms'] * 1e3:.2f} "
-          f"us   sdpa {r['library_ms'] * 1e3:.2f} us   bound "
-          f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: {n_valid} of {W} "
-          f"slots count, {nbytes} B; {splits} splits of {per} tiles)")
+          "us   " + "   ".join(f"{n} {t * 1e3:.2f} us" for n, t in lib.items())
+          + f"   bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
+          f"{n_valid} of {W} slots count, {nbytes} B; {splits} splits of at "
+          f"most {per} tiles); "
+          f"kernel/bound {r['ms'] / r['bound_ms']:.2f}, kernel/{fastest} "
+          f"{r['ms'] / r['library_ms']:.2f}")
     return r
 
 
 def time_split_rule(case) -> None:
     """``decode_attention`` with the split count its rule picks
-    (``decode_attention.BLOCKS_PER_SM``) against half and twice as many
-    splits, on the same inputs, so that the rule is checked on every
-    run."""
+    (``decode_attention.decode_splits``: a block per SM) against half and
+    twice as many splits, on the same inputs, so that the rule is checked
+    on every run.  Twice is left out where it would give a split no tile;
+    where it asks for more blocks than the card holds at once, the
+    cooperative launch is refused, and that is printed."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, W, H, K, hd, _, window, _ = case
     q, k, v, sp, pos = decode_inputs(case)
@@ -1014,14 +1054,20 @@ def time_split_rule(case) -> None:
     chosen = da.decode_splits(B * K, W)[0]
     times = []
     for splits in (max(1, chosen // 2), chosen, 2 * chosen):
-        per = -(-tiles // min(splits, tiles))
-        split = (-(-tiles // per), per)
-        with mock.patch.object(da, "decode_splits", lambda *_: split):
-            times.append((split, time_ms(lambda: da.decode_attention(
-                q, k, v, sp, pos, window=window), flush)))
-    print(f"  {'decode_attention':17s} splits: " + ", ".join(
-        f"{n} of {p} tiles -> {t * 1e3:.2f} us" for (n, p), t in times)
-        + f" (the rule picks {chosen})")
+        if splits > tiles:
+            continue
+        split = (splits, -(-tiles // splits))
+        with mock.patch.object(da, "decode_splits", lambda *_: split), \
+                mock.patch.dict(da._plans, clear=True):
+            try:
+                times.append((split, time_ms(lambda: da.decode_attention(
+                    q, k, v, sp, pos, window=window), flush)))
+            except RuntimeError as e:
+                print(f"  {'decode_attention':17s} {splits} splits: {e}")
+    print(f"  {'decode_attention':17s} {'-'.join(map(str, case))} splits: "
+          + ", ".join(f"{n} (at most {p} tiles) -> {t * 1e3:.2f} us"
+                      for (n, p), t in times)
+          + f" (the rule picks {chosen})")
 
 
 # ---------------------------------------------------------------------------
@@ -1324,16 +1370,18 @@ def print_serving_profile(kernels, wall_us, label) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     groups = {"flash_attention": ("flash_attention_kernel",),
               "rglru_scan": ("scan_kernel", "chunk_summary_kernel"),
-              "decode_attention": ("decode_partial_kernel",
-                                   "decode_combine_kernel"),
+              "decode_attention": ("decode_attention_kernel",),
               "matrix products": ("gemm",)}
     shares = {name: sum(e.self_device_time_total for e in kernels
                         if any(k in e.key.lower() for k in keys))
               for name, keys in groups.items()}
+    counts = {name: sum(e.count for e in kernels
+                        if any(k in e.key.lower() for k in keys))
+              for name, keys in groups.items()}
     print(f"profiled {label}: {wall_us / 1e3:.3f} ms wall (profiler on), "
           f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.1%}; "
-          + "; ".join(f"{n} {t / 1e3:.3f} ms = {t / busy_us:.1%}"
-                      for n, t in shares.items())
+          + "; ".join(f"{n} {t / 1e3:.3f} ms = {t / busy_us:.1%} "
+                      f"({counts[n]} kernels)" for n, t in shares.items())
           + f"; {sum(e.count for e in kernels)} kernel launches")
     print_top(kernels, 8)
 
@@ -1668,7 +1716,9 @@ def main() -> int:
     errs["decode_attention"] = check_decode_against_plain()
     time_decode(DECODE_SERVING)
     timing["decode_attention"] = time_decode(DECODE_GLM)
-    time_split_rule(DECODE_GLM)
+    time_decode(DECODE_CLI)
+    for case in (DECODE_SERVING, DECODE_GLM):
+        time_split_rule(case)
     m_cases = mean_cases()
     errs["weighted_mean"] = check_mean_against_plain(m_cases)
     timing["weighted_mean"] = time_mean(*m_cases["slab_n60_f44426"])

@@ -28,11 +28,9 @@ from repro_torch.kernels.hier_aggregate import NUM_SMS
 
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
-MAX_GROUP = 32                 # query heads per KV head: 4 warps x 8 rows
+MAX_GROUP = 32                 # query heads per KV head: 2 m-tiles of 16
 TILE = 32                      # slots per tile, as in csrc/decode_attention.cu
-#: The slots are split into runs of tiles for about this many blocks per SM
-#: (as ``hier_aggregate.BLOCKS_PER_SM`` for ``segment_sum``).
-BLOCKS_PER_SM = 4
+MAX_TILES_PER_SPLIT = 4096     # the tile masks a block keeps in shared memory
 MAX_GRID_Y = 65_535
 
 launch_counts = {"decode_attention": 0}
@@ -40,7 +38,15 @@ launch_counts = {"decode_attention": 0}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I64] * 17 + [_INT, _INT, _P]
+_ARGTYPES = [_P] * 8 + [_I64] * 16 + [_INT] * 3 + [_P]
+
+#: Per device: the splits' barrier words, one 64-bit (generation, count) a
+#: (batch, KV head), as two int32 zeroed once (the kernel leaves the counts
+#: 0), and the fp32 workspace of the blocks' partials, both grown on
+#: demand.  A fixed address lets a later CUDA graph of the decode step
+#: capture them.  The port launches on one stream: two launches on two
+#: streams at once would share them.
+_scratch: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -72,13 +78,53 @@ def decode_attention_plain(q, k_cache, v_cache, slot_pos, pos, *,
 
 
 def decode_splits(bk: int, w: int):
-    """``(splits, tiles per split)`` that the kernel cuts the ``w`` slots
-    into: about ``BLOCKS_PER_SM`` blocks per SM over the ``bk`` (batch, KV
-    head) pairs, at least one 32-slot tile per split."""
+    """``(splits, most tiles of a split)`` for ``bk`` (batch, KV head) pairs
+    over ``w`` slots.  The 32-slot tiles are dealt round-robin: split x
+    takes tiles x, x + splits, ...  The rule gives each SM one block
+    (``NUM_SMS // bk`` splits), never more splits than tiles.  With more
+    than one split the launch is cooperative: all its blocks are resident
+    at once, as the splits' barrier needs, and one block an SM always fits
+    (at head dims above 64 a block takes 150-210 KB of shared memory)."""
     tiles = -(-w // TILE)
-    want = max(1, min(-(-BLOCKS_PER_SM * NUM_SMS // bk), tiles))
-    per = -(-tiles // want)
-    return -(-tiles // per), per
+    s = max(1, min(NUM_SMS // bk, tiles), -(-tiles // MAX_TILES_PER_SPLIT))
+    return s, -(-tiles // s)
+
+
+def decode_smem_bytes(hd: int, g: int, w: int, splits: int,
+                      bf16: bool = False) -> int:
+    """Shared memory of one block, as ``Layout`` in the kernel lays it out:
+    the 8 compute warps' partial scores of one tile; P's fragments of one
+    tile per m-tile; a region that holds the K/V ring (2 stages at head dims
+    above 128 in fp32, else 4), then (with one split) the block's partial;
+    one mask per tile of the split; ``Misc``."""
+    def up(x, m):
+        return -(-x // m) * m
+    mt = 1 if g <= 16 else 2
+    nt = 8 if hd <= 64 else 16 if hd <= 128 else 32
+    size = 2 if bf16 else 4
+    stages = 2 if nt * size >= 128 else 4
+    ld = up(hd, 64) + 8 if bf16 else up(hd, 32) + 4
+    ring = stages * 2 * TILE * ld * size
+    merge = 4 * g * hd
+    tiles = -(-w // TILE)
+    masks = 4 * -(-tiles // splits)
+    misc = 12 * 8 + 4 * (2 * 2 * 4 * 16 + 2 * MAX_GROUP)
+    return (8 * 4 * 32 * 16 + mt * 4 * 64 * 16 + up(max(ring, merge), 16)
+            + up(masks, 16) + up(misc, 16))
+
+
+def _scratch_for(device, pairs: int, floats: int):
+    """The device's counters (at least ``pairs``) and workspace (at least
+    ``floats``), grown when a launch needs more."""
+    counters, ws = _scratch.get(device, (None, None))
+    if counters is None or counters.numel() < pairs:
+        counters = torch.zeros(max(pairs, 256), dtype=torch.int32,
+                               device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                         device=device)
+    _scratch[device] = counters, ws
+    return counters, ws
 
 
 def _check(q, k_cache, v_cache, slot_pos, pos):
@@ -111,18 +157,16 @@ def _check(q, k_cache, v_cache, slot_pos, pos):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
-    """One-token GQA ring-cache attention.  q: (B, 1, H, hd), caches
-    (B, W, K, hd), fp32 or bf16; slot_pos (W,) int32; pos a 0-d int32
-    tensor -> (B, 1, H, hd) of q's dtype.  On the card ``pos`` and
-    ``slot_pos`` are read in device memory (no host sync) and q and the
-    caches in place through their strides: the last dimension contiguous,
-    hd a multiple of 4 and at most 256, the other strides multiples of 4,
-    at most ``MAX_GROUP`` query heads per KV head."""
+#: Launch plans by layout: what a launch needs that the shapes, strides,
+#: dtypes and devices decide, checked once (the decode step calls the
+#: kernel with the same layout every layer and step, and its host work
+#: sets the step's time).
+_plans: dict = {}
+
+
+def _plan(q, k_cache, v_cache, slot_pos, pos, key):
+    """The checks of a CUDA launch and its layout-decided arguments."""
     _check(q, k_cache, v_cache, slot_pos, pos)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, slot_pos, pos,
-                                      window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, _, H, hd = q.shape
@@ -136,26 +180,55 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
     if B * K > MAX_GRID_Y:
         raise ValueError(f"B * K = {B * K} > {MAX_GRID_Y}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
-                t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous last dimension, "
-                             f"strides that are multiples of 4 and a "
-                             f"16-byte aligned start; got strides "
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]):
+            raise ValueError(f"{name} needs a contiguous last dimension and "
+                             f"strides that are multiples of 4; got strides "
                              f"{t.stride()}")
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    if W == 0 and B * H * hd:
+        raise ValueError("attention over an empty cache of 0 slots")
+    splits, _ = decode_splits(B * K, W) if W else (1, 0)
+    wide = q.dtype == torch.float32 or (hd % 8 == 0 and not any(
+        s % 8 for s in k_cache.stride()[:3] + v_cache.stride()[:3]))
+    args = (B, W, H, K, hd, q.stride(0), q.stride(2), *k_cache.stride()[:3],
+            *v_cache.stride()[:3], slot_pos.stride(0))
+    plan = dict(out=(B, 1, H, hd), args=args, splits=splits,
+                scratch=(2 * B * K, B * K * splits * g * (hd + 2)),
+                flags=(int(wide), int(q.dtype == torch.bfloat16),
+                       q.device.index or 0))
+    _plans[key] = plan
+    return plan
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
+    """One-token GQA ring-cache attention.  q: (B, 1, H, hd), caches
+    (B, W, K, hd), fp32 or bf16; slot_pos (W,) int32; pos a 0-d int32
+    tensor -> (B, 1, H, hd) of q's dtype.  On the card ``pos`` and
+    ``slot_pos`` are read in device memory (no host sync) and q and the
+    caches in place through their strides: the last dimension contiguous,
+    hd a multiple of 4 and at most 256, the other strides multiples of 4,
+    at most ``MAX_GROUP`` query heads per KV head."""
+    if q.device.type == "cpu":
+        _check(q, k_cache, v_cache, slot_pos, pos)
+        return decode_attention_plain(q, k_cache, v_cache, slot_pos, pos,
+                                      window=window)
+    key = (q.shape, q.stride(), q.dtype, q.device, k_cache.shape,
+           k_cache.stride(), k_cache.dtype, k_cache.device, v_cache.shape,
+           v_cache.stride(), v_cache.dtype, v_cache.device, slot_pos.shape,
+           slot_pos.stride(), slot_pos.dtype, slot_pos.device, pos.shape,
+           pos.dtype, pos.device)
+    plan = _plans.get(key) or _plan(q, k_cache, v_cache, slot_pos, pos, key)
+    out = torch.empty(plan["out"], dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if W == 0:
-        raise ValueError("attention over an empty cache of 0 slots")
-    splits, per = decode_splits(B * K, W)
-    ws = torch.empty(splits * B * H * (hd + 2), dtype=torch.float32,
-                     device=q.device)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+    if any(x % 16 for x in ptrs):
+        raise ValueError(f"q and the caches need 16-byte aligned starts; got "
+                         f"addresses {ptrs}")
+    counters, ws = _scratch_for(q.device, *plan["scratch"])
     err = build.load("decode_attention", _ARGTYPES)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        B, W, H, K, hd, q.stride(0), q.stride(2), *k_cache.stride()[:3],
-        *v_cache.stride()[:3], slot_pos.stride(0), int(window), splits, per,
-        int(q.dtype == torch.bfloat16), q.device.index or 0,
+        *ptrs, slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(), *plan["args"], int(window),
+        plan["splits"], *plan["flags"],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

@@ -6,6 +6,8 @@ in interpret mode as ``tests/test_kernels.py`` runs it on the CPU) and its
 carried-over layer with a wrapped ring, within 1e-6."""
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -125,16 +127,34 @@ def test_wrapper_checks_its_arguments():
 
 
 @pytest.mark.parametrize("bk,w,expected", [
-    (2, 2048, (64, 1)),            # RecurrentGemma-9B: one tile per split
-    (4, 8192, (128, 2)),           # ChatGLM3-6B at S = 4,096
-    (128, 128, (4, 1)),            # StableLM-1.6B, the CLI default
+    (2, 2048, (64, 1)),            # RecurrentGemma-9B: one tile a split
+    (4, 8192, (33, 8)),            # ChatGLM3-6B at S = 4,096: a block per SM
+    (128, 128, (1, 4)),            # StableLM-1.6B, the CLI default
     (600, 64, (1, 2)),             # the (batch, KV head) pairs fill the card
     (1, 33, (2, 1)),               # a ragged last tile
 ])
 def test_split_rule(bk, w, expected):
     splits, per = da.decode_splits(bk, w)
     assert (splits, per) == expected
-    assert splits * per * da.TILE >= w > (splits - 1) * per * da.TILE
+    tiles = -(-w // da.TILE)
+    assert splits <= tiles and per == -(-tiles // splits)
+
+
+@settings(max_examples=300, deadline=None)
+@given(bk=st.integers(1, 4096), w=st.integers(1, 1 << 17))
+def test_every_tile_is_dealt_to_one_split(bk, w):
+    """The kernel deals tile t to split t % splits: every tile goes to
+    exactly one split, no split gets more than one tile above another, and
+    a launch with more than one split has at most a block per SM (it is
+    cooperative: all its blocks must be resident at once)."""
+    splits, per = da.decode_splits(bk, w)
+    tiles = -(-w // da.TILE)
+    dealt = [list(range(x, tiles, splits)) for x in range(splits)]
+    assert sorted(t for d in dealt for t in d) == list(range(tiles))
+    sizes = [len(d) for d in dealt]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert max(sizes) == per <= da.MAX_TILES_PER_SPLIT
+    assert splits == 1 or splits * bk <= da.NUM_SMS
 
 
 # ---------------------------------------------------------------------------

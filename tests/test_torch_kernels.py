@@ -262,6 +262,41 @@ def test_flash_attention_tile_rule_fits_every_config(arch):
     assert fa.attention_blocks(2, 4096, h, kv, hd, w) >= fa.NUM_SMS
 
 
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_decode_attention_layout_fits_every_config(arch):
+    """For each config's head dim and group, and at the most query heads a
+    KV head, one block of the decode kernel at B = 2 over an 8,192-slot
+    cache fits the card's shared memory, fp32 and bf16."""
+    from repro_torch.kernels import decode_attention as da
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
+    g = cfg.num_heads // cfg.num_kv_heads
+    splits, _ = da.decode_splits(2 * cfg.num_kv_heads, 8192)
+    for group in (g, da.MAX_GROUP):
+        for bf16 in (False, True):
+            assert da.decode_smem_bytes(hd, group, 8192, splits,
+                                        bf16) <= SMEM_PER_BLOCK
+
+
+# B, W, K: the decode shapes of RecurrentGemma-9B (a full 2,048-slot ring),
+# ChatGLM3-6B (8,192 slots at S = 4,096) and StableLM-1.6B in the CLI.
+SERVING_DECODES = {"recurrentgemma": (2, 2048, 1), "chatglm3": (2, 8192, 2),
+                   "stablelm_cli": (4, 128, 32)}
+
+
+@pytest.mark.parametrize("name", sorted(SERVING_DECODES))
+def test_decode_split_rule_fills_the_card(name):
+    """The serving decode shapes give every SM a block, but for fewer than
+    one per (batch, KV head) pair or where the tiles run out, and no SM
+    two."""
+    from repro_torch.kernels import decode_attention as da
+    B, W, K = SERVING_DECODES[name]
+    splits, per = da.decode_splits(B * K, W)
+    blocks = splits * B * K
+    assert blocks > da.NUM_SMS - B * K or per == 1
+    assert blocks <= da.NUM_SMS
+
+
 # B, Sq, H, K, hd: the prefill shapes of RecurrentGemma-9B and ChatGLM3-6B
 # in serving, and of StableLM-1.6B in the serving CLI's default run.
 SERVING_PREFILLS = {"recurrentgemma": (2, 4096, 16, 1, 256),
@@ -323,8 +358,13 @@ def test_cuda_rglru_scan_matches_plain_version(cuda, name, monkeypatch):
 
 # B, W, H, K, hd, pos, window, slot layout: tests/test_kernels.py's
 # DECODE_CASES, its ring-wrapped case, an empty cache, a view [l] of a
-# stacked (L, B, W, 2, K, hd) cache, and the decode shapes of full-width
-# RecurrentGemma-9B (ring full), ChatGLM3-6B and StableLM-1.6B.
+# stacked (L, B, W, 2, K, hd) cache, the decode shapes of full-width
+# RecurrentGemma-9B (ring full), ChatGLM3-6B and StableLM-1.6B, then the
+# edges of the kernel's design: 32 query heads a KV head (two m-tiles, the
+# most), head dims 4 and 100 (padded k-steps; bf16 rows copied 8 bytes at
+# a time), a wrapped ring under a window shorter than a tile, a ragged W
+# whose last tile alone counts, more (batch, KV head) pairs than SMs, and
+# an odd count of split partials a row (one query head, three splits).
 DECODE_CASES = {
     "gqa_2-256-8-4-64": (2, 256, 8, 4, 64, 100, 0, "prefix"),
     "ragged_1-300-4-2-32": (1, 300, 4, 2, 32, 299, 0, "prefix"),
@@ -336,6 +376,14 @@ DECODE_CASES = {
     "recurrentgemma": (2, 2048, 16, 1, 256, 4096, 2048, "ring"),
     "chatglm3": (2, 8192, 32, 2, 128, 4096, 0, "prefix"),
     "stablelm": (4, 128, 32, 32, 64, 64, 0, "prefix"),
+    "group_32_hd128": (2, 512, 64, 2, 128, 300, 0, "prefix"),
+    "group_32_hd256": (1, 1024, 32, 1, 256, 2000, 512, "ring"),
+    "head_dim_4": (2, 96, 8, 2, 4, 70, 0, "prefix"),
+    "head_dim_100": (2, 200, 12, 3, 100, 150, 0, "prefix"),
+    "ring_window_under_a_tile": (2, 96, 8, 2, 32, 300, 20, "ring"),
+    "ragged_last_tile_only": (2, 100, 8, 2, 64, 500, 0, "tail"),
+    "pairs_600": (300, 64, 4, 2, 32, 40, 0, "prefix"),
+    "mha_three_splits": (1, 96, 2, 2, 32, 90, 0, "prefix"),
 }
 
 
@@ -348,6 +396,10 @@ def _decode_inputs(case, cuda, dtype):
         sp[:min(pos + 1, W)] = np.arange(min(pos + 1, W))
     elif layout == "empty":
         sp = np.full(W, -10**9, np.int32)
+    elif layout == "tail":                 # only the slots past the last
+        sp = np.full(W, -10**9, np.int32)  # whole tile were written
+        tail = np.arange(W // 32 * 32, W)
+        sp[tail] = pos - (W - 1 - tail)
     else:
         sp = np.asarray([pos - ((pos - w) % W) for w in range(W)])
         sp = np.where(sp >= 0, sp, -10**9).astype(np.int32)
@@ -373,7 +425,7 @@ def _decode_inputs(case, cuda, dtype):
 def test_cuda_decode_attention_matches_plain_version(cuda, name, dtype):
     """fp32 within 1e-5 of the output's scale; bf16 output within 2 bf16
     ulps of the largest value.  Two launches agree bit for bit (the
-    partials are combined in split order, no atomics)."""
+    partials are merged in a fixed order, whichever block comes last)."""
     from repro_torch.kernels import decode_attention as da
     case = DECODE_CASES[name]
     window = case[6]
@@ -390,6 +442,27 @@ def test_cuda_decode_attention_matches_plain_version(cuda, name, dtype):
     err = (out.float() - ref.float()).abs().max()
     assert err <= (1e-5 if dtype == torch.float32 else 2 * 2 ** -8) * scale
     assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_counters_reset_between_shapes(cuda):
+    """Two shapes whose (batch, KV head) pairs each merge several clusters'
+    partials through the wrapper's counters, and one that merges none,
+    called back to back, then in reverse order: each call gives what its
+    first call gave, so every launch left its counters at 0."""
+    from repro_torch.kernels import decode_attention as da
+    names = ("recurrentgemma", "chatglm3", "stablelm")
+    inputs = {n: _decode_inputs(DECODE_CASES[n], cuda, torch.float32)
+              for n in names}
+    first = {n: da.decode_attention(*inputs[n], window=DECODE_CASES[n][6])
+             for n in names}
+    for n in names[::-1] + names:
+        out = da.decode_attention(*inputs[n], window=DECODE_CASES[n][6])
+        torch.cuda.synchronize()
+        assert torch.equal(out, first[n]), n
+    for n in names:
+        ref = da.decode_attention_plain(*inputs[n], window=DECODE_CASES[n][6])
+        assert (first[n] - ref).abs().max() <= 1e-5 * ref.abs().max(), n
 
 
 @pytest.mark.cuda
