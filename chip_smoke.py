@@ -2,18 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py --time-aggregation`` times only
+``segment_aggregate`` and ``segment_sum`` and runs phase 6, through the
+wrappers alone: copied into an older tree, it times that tree's kernels,
+so two trees compare on one card in one call.)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit, the CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (build seconds; ptxas's registers and
-   spills of every kernel; no spill in ``flash_attention`` and
-   ``decode_attention``), TF32 off.
+   spills of every kernel; no spill in ``flash_attention``,
+   ``decode_attention``, ``segment_sum`` and ``segment_aggregate``), TF32
+   off.
 2. Kernels against their plain PyTorch versions on the card, at the
    paths' shapes and at the edge cases; each kernel timed (CUDA events,
    median of 100 launches, L2 flushed before each) beside its plain
    version, one PyTorch library call (where one computes the same
-   function) and its bound.  ``flash_attention`` at the prefill shapes of
+   function) and its bound.  ``segment_aggregate`` and ``segment_sum``
+   also bit for bit between two launches (``segment_sum``: the chunk sum
+   formed first, then added), on row views from an odd row, one kernel a
+   call (``torch.profiler``), with each wrapper's host time a call and
+   one call's device time; ``segment_aggregate`` at phases 3 and 5's
+   cohort and phase 9's slab (and with half and twice its rule's warps a
+   block), ``segment_sum`` at the streaming chunk and the LeNet cohort
+   (and with half and twice its rule's row slices).
+   ``flash_attention`` at the prefill shapes of
    phases 7 and 8 and of the serving CLI (beside masked SDPA, SDPA with
    ``is_causal=True`` and with ``enable_gqa=True`` where there is no window;
    with every warps-per-block count, its rule's among them; its build must
@@ -38,7 +51,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``benchmarks/bench_scale.py``: 1,048,576 client rows x 1,024 columns
    folded in 8,192-row chunks made on the card (the 4 GiB buffer never
    exists), one ``segment_sum`` launch per chunk, against a float64
-   accumulation of the same chunks.
+   accumulation of the same chunks; then 10 chunks profiled:
+   ``segment_sum``'s device time on the path.
 7. Serving at full width: RecurrentGemma-9B (38 layers, 8,532,381,696
    fp32 parameters from seed 0) through ``repro_torch.launch.serve``,
    B=2, a 4,096-token prompt (twice the 2,048 window) and 32 greedy
@@ -157,6 +171,9 @@ FA_INSTANTIATIONS = 6        # flash_attention.cu: head dims 64/128/256 x
                              # fp32/bf16
 DA_INSTANTIATIONS = 12       # decode_attention.cu: head dims 64/128/256 x
                              # 1 or 2 m-tiles x fp32/bf16
+SEG_INSTANTIATIONS = 6       # segment_sum.cu, segment_aggregate.cu: load
+                             # widths of 4, 2, 1 elements x fp32/bf16
+HOST_CALLS = 1000            # calls timed on the host clock, no sync
 # Phase 8: full-width ChatGLM3-6B serving (B, prompt and tokens as phase
 # 7), and the serving CLI's default model at the CLI's default sizes.
 GLM_ARCH = "chatglm3-6b"
@@ -230,11 +247,6 @@ def check(ok: bool, what: str) -> None:
 
 
 def phase_device() -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
     paths = build.build()
     print(f"built {', '.join(paths)} in {time.perf_counter() - t0:.2f} s")
@@ -244,6 +256,8 @@ def phase_device() -> None:
                 print(f"  {name}: {line.strip()}")
     check_no_spill(paths["flash_attention"], FA_INSTANTIATIONS)
     check_no_spill(paths["decode_attention"], DA_INSTANTIATIONS)
+    check_no_spill(paths["segment_sum"], SEG_INSTANTIATIONS)
+    check_no_spill(paths["segment_aggregate"], SEG_INSTANTIATIONS)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
@@ -277,19 +291,26 @@ def kernel_cases(device):
     cases = {}
     for name, n, f, m, edit in [
             ("main_n100_f44426", 100, 44_426, 5, None),
+            ("slab_n60_f44426", SHARD_ROWS, LENET_PARAMS, 5, None),
             ("past_tpu_split_n1000", 1000, 1000, 5, None),
             ("ragged_f1001", 100, 1001, 5, None),
             ("bf16_main", 100, 44_426, 5, "bf16"),
             ("edge_without_members", 100, 1001, 6, "empty"),
-            ("edge_all_zero_weight", 100, 1001, 5, "zero")]:
-        x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
+            ("edge_all_zero_weight", 100, 1001, 5, "zero"),
+            ("odd_row_view_f44426", 100, 44_426, 5, "odd_row"),
+            ("bf16_odd_row_view", 100, 44_426, 5, "bf16_odd_row")]:
+        odd = bool(edit) and "odd_row" in edit
+        x = torch.from_numpy(rng.normal(0, 1, (n + odd, f)).astype(np.float32))
         w = torch.from_numpy(rng.uniform(200, 1000, n).astype(np.float32))
-        g = torch.from_numpy((np.arange(n) % 5).astype(np.int32))
-        if edit == "bf16":
+        g = torch.from_numpy((np.arange(n) % min(m, 5)).astype(np.int32))
+        if edit in ("bf16", "bf16_odd_row"):
             x = x.to(torch.bfloat16)
         if edit == "zero":
             w[g == 2] = 0.0
-        cases[name] = (x.to(device), w.to(device), g.to(device), m)
+        # a row view from row 1 of the buffer: 8-byte (fp32) or 4-byte
+        # (bf16) aligned at F = 44,426, as a shard's slab can be
+        x = x.to(device)[1:] if odd else x.to(device)
+        cases[name] = (x, w.to(device), g.to(device), m)
     return cases
 
 
@@ -308,7 +329,10 @@ def check_kernels_against_plain(cases) -> dict:
             "cloud_aggregate": (ha.cloud_aggregate(x, w),
                                 ha.cloud_aggregate_plain(x, w)),
         }
+        again = ha.segment_aggregate(x, w, g, m)
         torch.cuda.synchronize()
+        check(torch.equal(pairs["segment_aggregate"][0], again),
+              f"segment_aggregate on {case}: two launches differ")
         for name, (out, ref) in pairs.items():
             check(out.dtype == torch.float32 and out.shape == x.shape,
                   f"{name} on {case}: dtype/shape")
@@ -359,43 +383,92 @@ def averaging_operator(w, g, m):
     return same * w[None, :] / gw.clamp_min(1e-12)[g.long()][:, None]
 
 
-def time_kernels(x, w, g, m) -> dict:
-    """Kernel, plain-version and library times at the main path's shape,
-    and the kernel's bound from this input's bytes and operations."""
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of ``fn``: a loop of ``calls`` calls with
+    no synchronisation between them (the card runs behind the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    per_call = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return per_call
+
+
+def kernels_per_call(fn, flush: torch.Tensor) -> dict:
+    """The device kernels one call of ``fn`` launches, the L2 flushed just
+    before (``torch.profiler``): name -> (count, device us)."""
+    fn()
+    flush.zero_()
+    torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in device_profile(fn)[1]}
+
+
+def launched_line(launched: dict) -> str:
+    return "; ".join(f"{k.split('(')[0][-40:]} {c}x {us:.2f} us"
+                     for k, (c, us) in launched.items())
+
+
+def check_one_launch(cases, s_cases) -> None:
+    """A call of ``segment_aggregate`` or of ``segment_sum`` (adding into
+    an accumulator, as the streaming path calls it) at every case's shape,
+    one ``torch.profiler`` session a wrapper: only that wrapper's kernel
+    runs, at most once a call (the profiler may drop a record)."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    accs = {case: torch.zeros(m, x.shape[1], device=x.device)
+            for case, (x, _, _, m) in s_cases.items()}
+    for name, calls in (
+            ("segment_aggregate", [
+                lambda x=x, w=w, g=g, m=m: ha.segment_aggregate(x, w, g, m)
+                for x, w, g, m in cases.values()]),
+            ("segment_sum", [
+                lambda x=x, w=w, g=g, m=m, acc=accs[case]:
+                ha.segment_sum(x, w, g, m, out=acc)
+                for case, (x, w, g, m) in s_cases.items()])):
+        launched = kernels_per_call(lambda: [fn() for fn in calls], flush)
+        count = sum(c for c, _ in launched.values())
+        check(bool(launched) and all(f"{name}_kernel" in k for k in launched)
+              and count <= len(calls), f"{name}: {len(calls)} calls "
+              f"launched {launched}")
+        print(f"  {name}: {len(calls)} calls, one at each case's shape, "
+              f"launched {count} kernels, all {name}_kernel")
+
+
+def time_kernels(x, w, g, m,
+                 names=("segment_aggregate", "cloud_aggregate")) -> dict:
+    """Kernel, plain-version and library times of the events ``names`` on
+    one input, the wrappers' host time per call, and each kernel's bound
+    from this input's bytes and operations."""
     flush = torch.empty(256 * 2**20 // 4, device=x.device)   # > 50 MB L2
     n, f = x.shape
-    p_seg = averaging_operator(w, g, m)
-    p_cloud = averaging_operator(w, None, m)
-    for p, ref in ((p_seg, ha.segment_aggregate_plain(x, w, g, m)),
-                   (p_cloud, ha.cloud_aggregate_plain(x, w))):
+    ops = {"segment_aggregate": (ha.segment_aggregate, ha.segment_aggregate_plain,
+                                 (w, g, m), 2),
+           "cloud_aggregate": (ha.cloud_aggregate, ha.cloud_aggregate_plain,
+                               (w,), 1)}
+    out = {}
+    for name in names:
+        kernel, plain, args, side_inputs = ops[name]
+        p = averaging_operator(w, g if side_inputs == 2 else None, m)
+        ref = plain(x, *args)
         check(_max_err(torch.mm(p, x), ref)
               <= KERNEL_RTOL * float(ref.abs().max()),
               "torch.mm with the averaging operator computes the event")
-    fns = {
-        "segment_aggregate": (lambda: ha.segment_aggregate(x, w, g, m),
-                              lambda: ha.segment_aggregate_plain(x, w, g, m),
-                              lambda: torch.mm(p_seg, x), 2),
-        "cloud_aggregate": (lambda: ha.cloud_aggregate(x, w),
-                            lambda: ha.cloud_aggregate_plain(x, w),
-                            lambda: torch.mm(p_cloud, x), 1),
-    }
-    out = {}
-    for name, (kernel, plain, library, side_inputs) in fns.items():
         nbytes = n * f * x.element_size() + n * f * 4 + side_inputs * n * 4
-        flops = 2 * n * f
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        launched = kernels_per_call(lambda: kernel(x, *args), flush)
         out[name] = dict(
-            ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
-            library_ms=time_ms(library, flush),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            ms=time_ms(lambda: kernel(x, *args), flush),
+            plain_ms=time_ms(lambda: plain(x, *args), flush),
+            library_ms=time_ms(lambda: torch.mm(p, x), flush),
+            **bound(nbytes, 2 * n * f))
         r = out[name]
-        print(f"  {name:17s} kernel {r['ms'] * 1e3:8.2f} us   plain "
-              f"{r['plain_ms'] * 1e3:8.2f} us   torch.mm "
-              f"{r['library_ms'] * 1e3:8.2f} us   bound "
-              f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']}, "
-              f"{nbytes} B)")
+        print(f"  {name:17s} N={n} F={f} M={m}: kernel "
+              f"{r['ms'] * 1e3:8.2f} us   plain {r['plain_ms'] * 1e3:8.2f} us"
+              f"   torch.mm {r['library_ms'] * 1e3:8.2f} us   bound "
+              f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']}, {nbytes} B);"
+              f" host {host_us(lambda: kernel(x, *args)):.2f} us a call; "
+              f"one call profiled: {launched_line(launched)}")
     return out
 
 
@@ -415,29 +488,40 @@ def sum_cases(device):
             ("bf16_stream", STREAM_CHUNK, STREAM_COLS, STREAM_GROUPS, "bf16"),
             ("group_without_members", 1000, 1001, 6, "empty"),
             ("group_all_zero_weight", 1000, 1001, 5, "zero"),
-            ("max_groups", 2000, 1001, ha.MAX_GROUPS, None)]:
-        x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
+            ("max_groups", 2000, 1001, ha.MAX_GROUPS, None),
+            ("odd_row_view_f44426", 100, 44_426, 5, "odd_row"),
+            ("bf16_odd_row_view", 100, 44_426, 5, "bf16_odd_row")]:
+        odd = bool(edit) and "odd_row" in edit
+        x = torch.from_numpy(rng.normal(0, 1, (n + odd, f)).astype(np.float32))
         w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
         g = torch.from_numpy(rng.integers(0, m, n).astype(np.int32))
-        if edit == "bf16":
+        if edit in ("bf16", "bf16_odd_row"):
             x = x.to(torch.bfloat16)
         if edit == "empty":
             g = torch.from_numpy((np.arange(n) % (m - 1)).astype(np.int32))
         if edit == "zero":
             w[g == 2] = 0.0
-        cases[name] = (x.to(device), w.to(device), g.to(device), m)
+        x = x.to(device)[1:] if odd else x.to(device)
+        cases[name] = (x, w.to(device), g.to(device), m)
     return cases
 
 
 def check_segment_sum_against_plain(cases) -> float:
-    """``segment_sum`` on each case against its plain version, and exact
-    zeros for a group without members or with only zero weights; returns
-    the largest absolute error."""
+    """``segment_sum`` on each case against its plain version, bit for bit
+    between two launches, the chunk sum formed first and then added
+    (``0.5 + sum`` exactly), and exact zeros for a group without members
+    or with only zero weights; returns the largest absolute error."""
     worst = 0.0
     for case, (x, w, g, m) in cases.items():
         out = ha.segment_sum(x, w, g, m)
+        again = ha.segment_sum(x, w, g, m)
+        acc = ha.segment_sum(x, w, g, m, out=torch.full_like(out, 0.5))
         ref = ha.segment_sum_plain(x, w, g, m)
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"segment_sum on {case}: two "
+              "launches differ")
+        check(torch.equal(acc, 0.5 + out), f"segment_sum on {case}: the "
+              "chunk sum is not formed first and then added")
         check(out.dtype == torch.float32 and tuple(out.shape) ==
               (m, x.shape[1]), f"segment_sum on {case}: dtype/shape")
         check(bool(torch.isfinite(out).all()), f"segment_sum on {case}: "
@@ -448,9 +532,10 @@ def check_segment_sum_against_plain(cases) -> float:
               f"segment_sum on {case}: max|err| {err:.3e} > "
               f"{KERNEL_RTOL} x {scale:.3e}")
         worst = max(worst, err)
+        slices, _, warps = ha.segment_sum_plan(*x.shape, m)
         print(f"  {'segment_sum':17s} {case:22s} max|err| {err:.3e} "
-              f"(scale {scale:.3e}; {ha.segment_sum_slices(*x.shape)[0]} "
-              "row slices)")
+              f"(scale {scale:.3e}; {slices} row slices, {warps} warps a "
+              f"block, loads of {ha.load_width(x.shape[1], x.element_size(), x.data_ptr())})")
         zero = {"group_without_members": m - 1,
                 "group_all_zero_weight": 2}.get(case)
         if zero is not None:
@@ -464,7 +549,8 @@ def check_segment_sum_against_plain(cases) -> float:
 def time_segment_sum(x, w, g, m) -> dict:
     """``segment_sum`` as the accumulator calls it (adding into an (M, F)
     accumulator), its plain version and the library yardstick: one
-    ``torch.mm`` of the (M, N) weighted one-hot with the chunk."""
+    ``torch.mm`` of the (M, N) weighted one-hot with the chunk; the
+    wrapper's host time per call and the kernels one call launches."""
     flush = torch.empty(256 * 2**20 // 4, device=x.device)   # > 50 MB L2
     n, f = x.shape
     acc = torch.zeros(m, f, device=x.device)
@@ -476,38 +562,60 @@ def time_segment_sum(x, w, g, m) -> dict:
           "torch.mm with the weighted one-hot computes segment_sum")
     nbytes = (n * f * x.element_size() + 2 * n * 4   # chunk, w, group ids
               + 2 * m * f * 4)                       # accumulator in and out
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * n * f / FP32_FLOPS_PER_S * 1e3
+    launched = kernels_per_call(lambda: ha.segment_sum(x, w, g, m, out=acc),
+                                flush)
     r = dict(ms=time_ms(lambda: ha.segment_sum(x, w, g, m, out=acc), flush),
              plain_ms=time_ms(lambda: ha.segment_sum_plain(x, w, g, m),
                               flush),
              library_ms=time_ms(lambda: torch.mm(onehot, x), flush),
-             bound_ms=max(bytes_ms, ops_ms),
-             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+             **bound(nbytes, 2 * n * f))
     print(f"  {'segment_sum':17s} N={n} F={f} M={m}: kernel "
           f"{r['ms'] * 1e3:8.2f} us   plain {r['plain_ms'] * 1e3:8.2f} us"
           f"   torch.mm {r['library_ms'] * 1e3:8.2f} us   bound "
-          f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']}, {nbytes} B)")
+          f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']}, {nbytes} B); "
+          f"host {host_us(lambda: ha.segment_sum(x, w, g, m, out=acc)):.2f}"
+          f" us a call; one call profiled: {launched_line(launched)}")
     return r
 
 
 def time_slice_rule(x, w, g, m) -> None:
-    """``segment_sum`` with the slice count its rule picks
-    (``hier_aggregate.BLOCKS_PER_SM``) against half and twice as many
-    slices, on the same inputs, so that the rule is checked on every run."""
+    """``segment_sum`` with the row slices its rule picks
+    (``hier_aggregate.segment_sum_plan``: about a block per SM) against
+    half and twice as many, on the same inputs, so that the rule is
+    checked on every run."""
     flush = torch.empty(256 * 2**20 // 4, device=x.device)
     acc = torch.zeros(m, x.shape[1], device=x.device)
     n = x.shape[0]
-    chosen = ha.segment_sum_slices(*x.shape)[0]
+    chosen = ha.segment_sum_plan(*x.shape, m)[0]
     times = []
-    for slices in (chosen // 2, chosen, 2 * chosen):
+    for slices in (max(1, chosen // 2), chosen, 2 * chosen):
         rows = -(-n // slices)
-        split = (-(-n // rows), rows)
-        with mock.patch.object(ha, "segment_sum_slices", lambda *_: split):
-            times.append((split[0], time_ms(
+        slices = -(-n // rows)
+        plan = (slices, rows, ha.block_warps(
+            rows, slices * -(-x.shape[1] // ha.TILE), m * ha.TILE))
+        with mock.patch.object(ha, "segment_sum_plan", lambda *_: plan):
+            times.append((plan, time_ms(
                 lambda: ha.segment_sum(x, w, g, m, out=acc), flush)))
     print("  segment_sum       slices: " + ", ".join(
-        f"{s} -> {t * 1e3:.2f} us" for s, t in times)
+        f"{s} of {r} rows, {k} warps -> {t * 1e3:.2f} us"
+        for (s, r, k), t in times) + f" (the rule picks {chosen})")
+
+
+def time_aggregate_warps_rule(x, w, g, m) -> None:
+    """``segment_aggregate`` with the warps a block its rule picks
+    (``hier_aggregate.segment_aggregate_warps``) against half and twice as
+    many, on the same inputs."""
+    flush = torch.empty(256 * 2**20 // 4, device=x.device)
+    chosen = ha.segment_aggregate_warps(*x.shape, m)
+    times = []
+    for warps in sorted({max(1, chosen // 2), chosen,
+                         min(ha.MAX_WARPS, 2 * chosen)}):
+        with mock.patch.object(ha, "segment_aggregate_warps",
+                               lambda *_: warps):
+            times.append((warps, time_ms(
+                lambda: ha.segment_aggregate(x, w, g, m), flush)))
+    print(f"  segment_aggregate N={x.shape[0]} warps: " + ", ".join(
+        f"{k} -> {t * 1e3:.2f} us" for k, t in times)
         + f" (the rule picks {chosen})")
 
 
@@ -1322,7 +1430,31 @@ def phase_streaming() -> int:
     check(err <= STREAM_RTOL * scale,
           f"streaming means: max|err| {err:.3e} > {STREAM_RTOL} x "
           f"{scale:.3e}")
+    profile_chunks(w[:chunk], gid[:chunk])
     return launches["segment_sum"]
+
+
+def profile_chunks(w, gid, chunks: int = 10) -> None:
+    """``chunks`` chunks of phase 6 folded as the path folds them (each
+    made on the card just before, so it may sit in L2), under
+    ``torch.profiler``: ``segment_sum``'s device time a launch on the path
+    and every kernel a fold launches."""
+    acc = StreamingEdgeAccumulator(STREAM_GROUPS, STREAM_COLS, device="cuda")
+
+    def fold():
+        for i in range(chunks):
+            acc.add(stream_chunk(i, STREAM_CHUNK), w, gid)
+
+    fold()
+    wall_us, kernels = device_profile(fold)
+    k4 = [e for e in kernels if "segment_sum" in e.key
+          or "sum_slices" in e.key]
+    print(f"  profiled {chunks} chunks: {wall_us / chunks:.1f} us wall a "
+          "chunk (profiler on); segment_sum on the path: "
+          + "; ".join(f"{e.key[:60]} {e.count}x "
+                      f"{e.self_device_time_total / e.count:.2f} us"
+                      for e in k4))
+    print_top(kernels, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -1686,11 +1818,41 @@ def phase_sharded(sch, ue_data, test, unsharded) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def time_aggregation() -> int:
+    """``--time-aggregation``: K1 and K4 timed at the paths' shapes and
+    phase 6, nothing else.  Only the wrappers' signatures are used, so the
+    same script times an older tree's kernels (copy it into that tree) in
+    the same call, for a comparison on one card."""
+    print("== aggregation kernels only")
+    t0 = time.perf_counter()
+    paths = build.build(["segment_aggregate", "segment_sum"])
+    print(f"built {', '.join(paths)} in {time.perf_counter() - t0:.2f} s")
+    cases = kernel_cases("cuda")
+    time_kernels(*cases["main_n100_f44426"], names=("segment_aggregate",))
+    time_kernels(*cases["slab_n60_f44426"], names=("segment_aggregate",))
+    s_cases = sum_cases("cuda")
+    time_segment_sum(*s_cases["stream_n8192_f1024"])
+    time_segment_sum(*s_cases["lenet_n100_f44426"])
+    del cases, s_cases
+    phase_streaming()
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    if argv == ["--time-aggregation"]:
+        return time_aggregation()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     print("== phase 1: device")
     phase_device()
@@ -1699,8 +1861,12 @@ def main() -> int:
     cases = kernel_cases("cuda")
     errs = check_kernels_against_plain(cases)
     timing = time_kernels(*cases["main_n100_f44426"])
+    time_kernels(*cases["slab_n60_f44426"], names=("segment_aggregate",))
+    time_aggregate_warps_rule(*cases["main_n100_f44426"])
+    time_aggregate_warps_rule(*cases["slab_n60_f44426"])
     s_cases = sum_cases("cuda")
     errs["segment_sum"] = check_segment_sum_against_plain(s_cases)
+    check_one_launch(cases, s_cases)
     timing["segment_sum"] = time_segment_sum(*s_cases["stream_n8192_f1024"])
     time_slice_rule(*s_cases["stream_n8192_f1024"])
     time_segment_sum(*s_cases["lenet_n100_f44426"])

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports one C function ``<name>`` and compiles on
 its own into ``_build/<name>-<hash>.so`` for Hopper (``sm_90a``).  The hash
-covers the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is not.  Kernels are built at first use, never at import:
+covers the source, every header under ``csrc/`` that it includes (with
+``#include "..."``, at any depth) and the flags, so an edited kernel or
+header is rebuilt and an unchanged one is not.  Kernels are built at first use, never at import:
 the CPU-only test machines have no ``nvcc``.  ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,9 +38,26 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: Path) -> list:
+    """``path`` and the headers it includes with quotes, at any depth,
+    each once, in the order they are first included."""
+    files = [path]
+    for f in files:
+        for name in _INCLUDE.findall(f.read_bytes()):
+            header = f.parent / name.decode()
+            if header not in files:
+                files.append(header)
+    return files
+
+
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is (to be) built."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for f in _with_headers(CSRC / f"{name}.cu"):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -17,6 +17,12 @@ buffer: the wrappers of the four CUDA kernels and their plain versions.
   accumulator.  Kernel ``csrc/segment_sum.cu``; replaces
   ``hier_segment_sum_2d`` (``hier_aggregate.py:263``).
 
+``segment_aggregate`` and ``segment_sum`` share their row sums
+(``csrc/segment_core.cuh``) and are one launch a call each; their wrappers
+pick the load width from x's row length and address (``load_width``), the
+warps a block (``block_warps``) and ``segment_sum``'s row slices
+(``segment_sum_plan``), and keep ``segment_sum``'s workspace per device.
+
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  ``launch_counts`` counts the launches, so a run can
@@ -31,18 +37,23 @@ import torch
 from repro_torch.kernels import build
 
 TILE = 128                     # columns per block, as in csrc/*.cu
-ROWS = 16                      # rows per step of the kernels' row loops
+ROWS = 16                      # rows per step of weighted_mean's row loop
 SMEM_BYTES = 232_448           # the shared memory an H100 block may use
 NUM_SMS = 132                  # streaming multiprocessors of an H100 SXM
-#: Most groups ``segment_aggregate`` and ``segment_sum`` take: the (M, TILE)
-#: sums (and ``segment_aggregate``'s (M,) weight sums) live in one block's
-#: shared memory.
+#: Most groups ``segment_aggregate`` and ``segment_sum`` take: one warp's
+#: (M, TILE) sums and (M,) weight sums live in one block's shared memory.
 MAX_GROUPS = SMEM_BYTES // (4 * (TILE + 1))
-#: ``segment_sum`` splits the rows into slices, for about this many blocks
-#: per SM (at the streaming chunk, 8192 x 1024, four came out faster than
-#: two or eight: ``chip_smoke.py`` phase 2 times all three), of at least
-#: ``MIN_SLICE_ROWS`` rows each.
-BLOCKS_PER_SM = 4
+#: Most warps a ``segment_aggregate`` or ``segment_sum`` block splits its
+#: rows over, and the rows a warp loads at once (``csrc/segment_core.cuh``).
+MAX_WARPS = 16
+WARP_ROWS = 8
+#: Warps an SM holds at once at those kernels' 63-80 registers a thread
+#: (ptxas, ``chip_smoke.py`` phase 1): three 8-warp blocks.  Their grids
+#: stay within one wave of that.
+RESIDENT_WARPS = 24
+#: ``segment_sum`` splits the rows into slices for about one block per SM
+#: (a column tile and a slice a block), of at least ``MIN_SLICE_ROWS``
+#: rows each.
 MIN_SLICE_ROWS = 64
 #: ``weighted_mean``'s slice rule aims at this many blocks per SM: about
 #: six waves of the ten 128-thread blocks an SM holds at once (48
@@ -64,12 +75,21 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _ARGTYPES = {
-    "segment_aggregate": [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P],
+    "segment_aggregate": [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT,
+                          _INT, _P],
     "cloud_aggregate": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
-    "segment_sum": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _I64, _INT, _INT,
-                    _INT, _P],
+    "segment_sum": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _I64, _INT,
+                    _INT, _INT, _INT, _INT, _P],
     "weighted_mean": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _INT, _P],
 }
+
+
+#: Per device: ``segment_sum``'s tile counters (int32, zeroed once; the
+#: kernel leaves them 0) and its fp32 workspace of the slices' partial
+#: sums, grown on demand, so that a call allocates nothing.  The port
+#: launches on one stream: two launches on two streams at once would share
+#: them.
+_scratch: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -149,6 +169,38 @@ def segment_sum_plain(x, w, group_ids, num_groups: int):
 # ---------------------------------------------------------------------------
 
 
+def load_width(n_cols: int, element_size: int, data_ptr: int) -> int:
+    """Elements of x per load in ``segment_aggregate`` and ``segment_sum``:
+    4, 2 or 1, the widest that divides the row's length and whose bytes
+    divide x's address (16-, 8- or 4-byte loads in fp32; 8, 4 or 2 bytes
+    in bf16)."""
+    for vec in (4, 2):
+        if n_cols % vec == 0 and data_ptr % (vec * element_size) == 0:
+            return vec
+    return 1
+
+
+def block_warps(rows: int, blocks: int, slot_floats: int) -> int:
+    """Warps of each of ``blocks`` ``segment_aggregate`` or ``segment_sum``
+    blocks over ``rows`` rows: a power of two, one a ``WARP_ROWS`` rows (so
+    that a warp has all its rows' loads in flight at once), at most
+    ``MAX_WARPS``, no more than keep the grid within one wave of
+    ``RESIDENT_WARPS`` warps an SM, and no more than whose
+    ``slot_floats``-float slots fit in shared memory."""
+    warps = 1
+    while (warps < MAX_WARPS and warps * WARP_ROWS < rows
+           and 2 * warps * blocks <= RESIDENT_WARPS * NUM_SMS
+           and 2 * warps * slot_floats * 4 <= SMEM_BYTES):
+        warps *= 2
+    return warps
+
+
+def segment_aggregate_warps(n_rows: int, n_cols: int, num_groups: int) -> int:
+    """Warps a ``segment_aggregate`` block (one column tile, every row)
+    splits its rows over: each holds (M, TILE) sums and (M,) weights."""
+    return block_warps(n_rows, -(-n_cols // TILE), num_groups * (TILE + 1))
+
+
 def segment_aggregate(x, w, group_ids, num_groups: int):
     """Edge aggregation (eq. 6).  x: (N, F) fp32|bf16, w: (N,) fp32,
     group_ids: (N,) int32 in [0, num_groups) -> (N, F) fp32 with
@@ -160,10 +212,12 @@ def segment_aggregate(x, w, group_ids, num_groups: int):
         return segment_aggregate_plain(x, w, group_ids, num_groups)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel():
+        n, f = x.shape
         _launch("segment_aggregate", x.data_ptr(), w.data_ptr(),
-                group_ids.data_ptr(), out.data_ptr(), x.shape[0],
-                x.shape[1], num_groups, int(x.dtype == torch.bfloat16),
-                x.device.index or 0,
+                group_ids.data_ptr(), out.data_ptr(), n, f, num_groups,
+                segment_aggregate_warps(n, f, num_groups),
+                load_width(f, x.element_size(), x.data_ptr()),
+                int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
@@ -217,17 +271,31 @@ def weighted_mean(x, w):
     return out
 
 
-def segment_sum_slices(n_rows: int, n_cols: int):
-    """``(slices, rows per slice)`` that ``segment_sum`` splits the rows
-    into: enough slices for about ``BLOCKS_PER_SM`` blocks per SM with one
-    block per column tile and slice, at least ``MIN_SLICE_ROWS`` rows each.
-    One slice when the column tiles alone fill the card."""
+def segment_sum_plan(n_rows: int, n_cols: int, num_groups: int):
+    """``(slices, rows per slice, warps per block)`` of a ``segment_sum``
+    launch: enough row slices for about one block per SM with one block a
+    column tile and slice, of at least ``MIN_SLICE_ROWS`` rows each (one
+    slice when the column tiles alone fill the card), and the warps that
+    ``block_warps`` gives a slice's rows."""
     tiles = -(-n_cols // TILE)
-    slices = max(1, min(-(-BLOCKS_PER_SM * NUM_SMS // tiles),
-                        n_rows // MIN_SLICE_ROWS))
-    rows = -(-n_rows // slices)
-    rows = -(-rows // ROWS) * ROWS
-    return -(-n_rows // rows), rows
+    slices = max(1, min(NUM_SMS // tiles, n_rows // MIN_SLICE_ROWS))
+    rows = max(1, -(-n_rows // slices))
+    slices = -(-n_rows // rows)
+    return slices, rows, block_warps(rows, tiles * slices, num_groups * TILE)
+
+
+def _sum_scratch(device, tiles: int, floats: int):
+    """The device's tile counters (at least ``tiles``) and workspace (at
+    least ``floats``), grown when a launch needs more."""
+    counters, ws = _scratch.get(device, (None, None))
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, NUM_SMS), dtype=torch.int32,
+                               device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                         device=device)
+    _scratch[device] = counters, ws
+    return counters, ws
 
 
 def segment_sum(x, w, group_ids, num_groups: int, out=None):
@@ -250,13 +318,19 @@ def segment_sum(x, w, group_ids, num_groups: int, out=None):
     if x.device.type == "cpu":
         return out.add_(segment_sum_plain(x, w, group_ids, num_groups))
     if x.numel():
-        slices, rows = segment_sum_slices(*x.shape)
-        partial = (torch.empty((slices,) + shape, dtype=torch.float32,
-                               device=x.device) if slices > 1 else None)
+        n, f = x.shape
+        slices, rows, warps = segment_sum_plan(n, f, num_groups)
+        counters = ws = None
+        if slices > 1:
+            tiles = -(-f // TILE)
+            counters, ws = _sum_scratch(x.device, tiles,
+                                        tiles * slices * num_groups * TILE)
         _launch("segment_sum", x.data_ptr(), w.data_ptr(),
                 group_ids.data_ptr(), out.data_ptr(),
-                None if partial is None else partial.data_ptr(),
-                x.shape[0], x.shape[1], num_groups, rows, slices,
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), n, f,
+                num_groups, rows, slices, warps,
+                load_width(f, x.element_size(), x.data_ptr()),
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
     return out

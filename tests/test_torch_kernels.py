@@ -22,7 +22,28 @@ CASES = {
     "past_tpu_split_n1000": (1000, 1000, 5, torch.float32, None),
     "many_groups_dynamic_smem": (500, 300, ha.MAX_GROUPS, torch.float32,
                                  None),
+    "shard_slab_n60": (60, 44_426, 5, torch.float32, None),
+    "odd_row_view_f44426": (100, 44_426, 5, torch.float32, "odd_row"),
+    "bf16_odd_row_view_f44426": (100, 44_426, 5, torch.bfloat16, "odd_row"),
 }
+
+
+def _inputs(cases, name, device):
+    """(x, w, g, m) of case ``name``, made from a seed; an ``odd_row`` x is
+    a view from row 1 of a buffer one row longer (at F = 44,426 its rows
+    are 8-byte aligned in fp32 and 4-byte aligned in bf16, not 16)."""
+    n, f, m, dtype, edit = cases[name]
+    rng = np.random.default_rng(len(name))
+    odd = edit == "odd_row"
+    x = torch.from_numpy(rng.normal(0, 1, (n + odd, f)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    g = torch.from_numpy(rng.integers(0, m, n).astype(np.int32))
+    if edit == "empty_group":
+        g[g == 2] = 0
+    if edit == "zero_weight_group":
+        w[g == 1] = 0.0
+    x = x.to(device, dtype)
+    return x[1:] if odd else x, w.to(device), g.to(device), m
 
 
 @pytest.fixture
@@ -35,22 +56,16 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cuda_kernels_match_plain_versions(cuda, name):
-    n, f, m, dtype, edit = CASES[name]
-    rng = np.random.default_rng(len(name))
-    x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
-    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
-    g = torch.from_numpy(rng.integers(0, m, n).astype(np.int32))
-    if edit == "empty_group":
-        g[g == 2] = 0
-    if edit == "zero_weight_group":
-        w[g == 1] = 0.0
-    x, w, g = x.to(cuda, dtype), w.to(cuda), g.to(cuda)
+    edit = CASES[name][4]
+    x, w, g, m = _inputs(CASES, name, cuda)
     before = dict(ha.launch_counts)
     seg = ha.segment_aggregate(x, w, g, m)
     cloud = ha.cloud_aggregate(x, w)
+    again = ha.segment_aggregate(x, w, g, m)
     torch.cuda.synchronize()
     assert ha.launch_counts["segment_aggregate"] == \
-        before["segment_aggregate"] + 1
+        before["segment_aggregate"] + 2
+    assert torch.equal(seg, again)          # no atomics: run to run equal
     assert ha.launch_counts["cloud_aggregate"] == \
         before["cloud_aggregate"] + 1
     for out, ref in ((seg, ha.segment_aggregate_plain(x, w, g, m)),
@@ -81,22 +96,16 @@ SUM_CASES = {
     "memberless_group": (1000, 300, 6, torch.float32, "empty_group"),
     "zero_weight_group": (1000, 300, 5, torch.float32, "zero_weight_group"),
     "max_groups": (2000, 300, ha.MAX_GROUPS, torch.float32, None),
+    "odd_row_view_f44426": (100, 44_426, 5, torch.float32, "odd_row"),
+    "bf16_odd_row_view_f44426": (100, 44_426, 5, torch.bfloat16, "odd_row"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SUM_CASES))
 def test_cuda_segment_sum_matches_plain_version(cuda, name):
-    n, f, m, dtype, edit = SUM_CASES[name]
-    rng = np.random.default_rng(len(name))
-    x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
-    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
-    g = torch.from_numpy(rng.integers(0, m, n).astype(np.int32))
-    if edit == "empty_group":
-        g[g == 2] = 0
-    if edit == "zero_weight_group":
-        w[g == 1] = 0.0
-    x, w, g = x.to(cuda, dtype), w.to(cuda), g.to(cuda)
+    f, edit = SUM_CASES[name][1], SUM_CASES[name][4]
+    x, w, g, m = _inputs(SUM_CASES, name, cuda)
     before = ha.launch_counts["segment_sum"]
     out = ha.segment_sum(x, w, g, m)
     again = ha.segment_sum(x, w, g, m)

@@ -97,14 +97,55 @@ def test_segment_sum_wrapper_rejects_what_the_kernel_does_not_take(bad):
         ha.segment_sum(tx, tw, tg, kw.pop("num_groups", m), **kw)
 
 
-@pytest.mark.parametrize("n,f,slices,rows", [
-    (8192, 1024, 64, 128),       # streaming chunk: 8 column tiles only
-    (100, 44_426, 1, 112),       # LeNet cohort: 348 tiles fill the card
-    (7, 1024, 1, 16), (1, 1024, 1, 16), (8000, 1001, 63, 128),
-    (1000, 300, 13, 80)])
-def test_segment_sum_slice_rule(n, f, slices, rows):
-    assert ha.segment_sum_slices(n, f) == (slices, rows)
+@pytest.mark.parametrize("n,f,m,slices,rows,warps", [
+    (8192, 1024, 16, 16, 512, 16),   # streaming chunk: 8 column tiles only
+    (100, 44_426, 5, 1, 100, 8),     # LeNet cohort: 348 tiles fill the card
+    (7, 1024, 16, 1, 7, 1), (1, 1024, 16, 1, 1, 1),
+    (8000, 1001, 16, 16, 500, 16), (1000, 300, 5, 15, 67, 16),
+    (2000, 300, ha.MAX_GROUPS, 31, 65, 1)])   # one warp's slots fill a block
+def test_segment_sum_slice_rule(n, f, m, slices, rows, warps):
+    assert ha.segment_sum_plan(n, f, m) == (slices, rows, warps)
     assert (slices - 1) * rows < n <= slices * rows
+    tiles = -(-f // ha.TILE)
+    assert tiles * slices <= max(tiles, ha.NUM_SMS)   # one block an SM
+    assert slices == 1 or rows >= ha.MIN_SLICE_ROWS
+    assert warps * m * ha.TILE * 4 <= ha.SMEM_BYTES   # the warps' slots
+    assert warps == 1 or warps * tiles * slices <= \
+        ha.RESIDENT_WARPS * ha.NUM_SMS                # one wave
+
+
+@pytest.mark.parametrize("n,f,m,warps", [
+    (100, 44_426, 5, 8),             # phases 3 and 5: a LeNet cohort
+    (60, 44_426, 5, 8),              # phase 9: a shard's slab
+    (1000, 1000, 5, 16), (100, 1000, 5, 16), (12, 37, 3, 2),
+    (16, 1024, 5, 2), (17, 1024, 5, 4),
+    (100, 300, 200, 2),              # two warps' slots fill a block
+    (500, 300, ha.MAX_GROUPS, 1)])
+def test_segment_aggregate_warps_rule(n, f, m, warps):
+    assert ha.segment_aggregate_warps(n, f, m) == warps
+    tiles = -(-f // ha.TILE)
+    slot_bytes = m * (ha.TILE + 1) * 4
+    assert warps * slot_bytes <= ha.SMEM_BYTES
+    assert warps == 1 or warps * tiles <= ha.RESIDENT_WARPS * ha.NUM_SMS
+    assert (warps == ha.MAX_WARPS or warps * ha.WARP_ROWS >= n
+            or 2 * warps * slot_bytes > ha.SMEM_BYTES
+            or 2 * warps * tiles > ha.RESIDENT_WARPS * ha.NUM_SMS)
+
+
+# (F, element size, byte offset of x from an aligned base) -> elements a load
+@pytest.mark.parametrize("f,size,offset,vec", [
+    (1024, 4, 0, 4),                 # the streaming chunk: 16-byte loads
+    (44_426, 4, 0, 2),               # LeNet: the pitch is 8 x 22,213 bytes
+    (44_426, 4, 44_426 * 4, 2),      # a view from an odd row: 8-aligned
+    (1001, 4, 0, 1),                 # odd F: 4-byte loads
+    (1024, 4, 8, 2), (1024, 4, 4, 1),
+    (1024, 2, 0, 4),                 # bf16: 8-byte loads of 4 values
+    (44_426, 2, 0, 2),
+    (44_426, 2, 44_426 * 2, 2),      # bf16, odd row: 4-byte aligned
+    (1001, 2, 0, 1), (1024, 2, 2, 1)])
+def test_load_width(f, size, offset, vec):
+    assert ha.load_width(f, size, 1 << 20 | offset) == vec
+    assert f % vec == 0 and offset % (vec * size) == 0
 
 
 def test_flat_staleness_merge_matches_reference():
