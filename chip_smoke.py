@@ -3,28 +3,31 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --time-aggregation`` times only
-``segment_aggregate`` and ``segment_sum`` and runs phase 6, through the
-wrappers alone: copied into an older tree, it times that tree's kernels,
-so two trees compare on one card in one call.)
+``segment_aggregate``, ``cloud_aggregate``, ``weighted_mean`` and
+``segment_sum`` and runs phase 6, through the wrappers alone: copied into
+an older tree, it times that tree's kernels, so two trees compare on one
+card in one call.)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit, the CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (build seconds; ptxas's registers and
    spills of every kernel; no spill in ``flash_attention``,
-   ``decode_attention``, ``segment_sum`` and ``segment_aggregate``), TF32
-   off.
+   ``decode_attention``, ``segment_sum``, ``segment_aggregate``,
+   ``cloud_aggregate`` and ``weighted_mean``), TF32 off.
 2. Kernels against their plain PyTorch versions on the card, at the
    paths' shapes and at the edge cases; each kernel timed (CUDA events,
    median of 100 launches, L2 flushed before each) beside its plain
    version, one PyTorch library call (where one computes the same
-   function) and its bound.  ``segment_aggregate`` and ``segment_sum``
-   also bit for bit between two launches (``segment_sum``: the chunk sum
-   formed first, then added), on row views from an odd row, one kernel a
-   call (``torch.profiler``), with each wrapper's host time a call and
-   one call's device time; ``segment_aggregate`` at phases 3 and 5's
-   cohort and phase 9's slab (and with half and twice its rule's warps a
-   block), ``segment_sum`` at the streaming chunk and the LeNet cohort
+   function) and its bound.  The four aggregation kernels also bit for
+   bit between two launches (``segment_sum``: the chunk sum formed first,
+   then added), on row views from an odd row, one kernel a call at every
+   case's shape (``torch.profiler``); ``segment_aggregate`` and
+   ``cloud_aggregate`` at phases 3 and 5's cohort (with each wrapper's
+   host time a call and one call's device time, and with half and twice
+   the warps rule's choice), ``segment_aggregate`` also at phase 9's
+   slab, ``cloud_aggregate`` with all-zero weights (NaN, as the
+   reference), ``segment_sum`` at the streaming chunk and the LeNet cohort
    (and with half and twice its rule's row slices).
    ``flash_attention`` at the prefill shapes of
    phases 7 and 8 and of the serving CLI (beside masked SDPA, SDPA with
@@ -35,8 +38,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the serving CLI (beside masked SDPA on expanded heads and with
    ``enable_gqa=True``; with half and twice its rule's split count),
    ``weighted_mean`` at phase 9's
-   slab and at a fleet-scale shard (and with half and twice its rule's
-   row slices).
+   slab and at a fleet-scale shard in fp32 and bf16, its tile counters
+   back at 0 after every call (and the slab and the fleet shards with half
+   and twice its plan's row slices and other splits).
 3. The main path at full width: ``plan()`` on the paper's 5-edge,
    100-UE topology, then synchronous Algorithm 1 on full LeNet
    (``HFLSimulator(device="cuda")``) for 2 cloud rounds; each kernel's
@@ -78,9 +82,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    holding the UE rows of whole edges, run phase 3's problem and model for
    ROUNDS rounds: ``b*`` ``segment_aggregate`` and one ``weighted_mean``
    launch per rank per round, no ``cloud_aggregate``; held to phase 3's
-   unsharded run within SENSITIVITY_FACTOR times the spread of that run
-   under a 1e-7 init move (the largest of three moves), and its accuracy
-   within one test sample.  Then one sharded cloud event at fleet scale,
+   run repeated unsharded, within SENSITIVITY_FACTOR times the spread of
+   that run under a 1e-7 init move (the largest of three moves), and its
+   accuracy within one test sample, all with cuDNN's deterministic
+   algorithms (with its default ones a LeNet run on the card differs from
+   itself as much as the sharded run differs from it).  Then one sharded cloud event at fleet scale,
    2 ranks x 16,384 UE rows x 44,426 fp32 columns made on the card,
    against a float64 sum and all-reduce.
 10. Kernel records as JSON (``launches``: each path's count, read around
@@ -171,7 +177,8 @@ FA_INSTANTIATIONS = 6        # flash_attention.cu: head dims 64/128/256 x
                              # fp32/bf16
 DA_INSTANTIATIONS = 12       # decode_attention.cu: head dims 64/128/256 x
                              # 1 or 2 m-tiles x fp32/bf16
-SEG_INSTANTIATIONS = 6       # segment_sum.cu, segment_aggregate.cu: load
+SEG_INSTANTIATIONS = 6       # segment_sum.cu, segment_aggregate.cu,
+                             # cloud_aggregate.cu, weighted_mean.cu: load
                              # widths of 4, 2, 1 elements x fp32/bf16
 HOST_CALLS = 1000            # calls timed on the host clock, no sync
 # Phase 8: full-width ChatGLM3-6B serving (B, prompt and tokens as phase
@@ -258,6 +265,8 @@ def phase_device() -> None:
     check_no_spill(paths["decode_attention"], DA_INSTANTIATIONS)
     check_no_spill(paths["segment_sum"], SEG_INSTANTIATIONS)
     check_no_spill(paths["segment_aggregate"], SEG_INSTANTIATIONS)
+    check_no_spill(paths["cloud_aggregate"], SEG_INSTANTIATIONS)
+    check_no_spill(paths["weighted_mean"], SEG_INSTANTIATIONS)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
@@ -329,10 +338,12 @@ def check_kernels_against_plain(cases) -> dict:
             "cloud_aggregate": (ha.cloud_aggregate(x, w),
                                 ha.cloud_aggregate_plain(x, w)),
         }
-        again = ha.segment_aggregate(x, w, g, m)
+        again = {"segment_aggregate": ha.segment_aggregate(x, w, g, m),
+                 "cloud_aggregate": ha.cloud_aggregate(x, w)}
         torch.cuda.synchronize()
-        check(torch.equal(pairs["segment_aggregate"][0], again),
-              f"segment_aggregate on {case}: two launches differ")
+        for name, out in again.items():
+            check(torch.equal(pairs[name][0], out),
+                  f"{name} on {case}: two launches differ")
         for name, (out, ref) in pairs.items():
             check(out.dtype == torch.float32 and out.shape == x.shape,
                   f"{name} on {case}: dtype/shape")
@@ -350,6 +361,17 @@ def check_kernels_against_plain(cases) -> dict:
             check(bool((seg[g == 2] == 0).all()),
                   "segment_aggregate: all-zero-weight edge is not exactly 0")
             print("  segment_aggregate  all-zero-weight edge gives exactly 0")
+    # No guard in eq. 10: all-zero weights give NaN at every N, as the
+    # reference's plain route (the TPU kernel's fall-through for N > 512
+    # to the guarded segment kernel is not followed).
+    for n in (40, 600):
+        x = cases["past_tpu_split_n1000"][0][:n]
+        w = torch.zeros(n, device="cuda")
+        check(bool(ha.cloud_aggregate(x, w).isnan().all()
+                   and ha.cloud_aggregate_plain(x, w).isnan().all()),
+              f"cloud_aggregate: all-zero weights at N={n} do not give NaN")
+    print("  cloud_aggregate    all-zero weights give NaN at N=40 and 600, "
+          "as the reference")
     return errs
 
 
@@ -411,22 +433,30 @@ def launched_line(launched: dict) -> str:
                      for k, (c, us) in launched.items())
 
 
-def check_one_launch(cases, s_cases) -> None:
-    """A call of ``segment_aggregate`` or of ``segment_sum`` (adding into
-    an accumulator, as the streaming path calls it) at every case's shape,
-    one ``torch.profiler`` session a wrapper: only that wrapper's kernel
-    runs, at most once a call (the profiler may drop a record)."""
-    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+def aggregation_calls(cases, s_cases) -> dict:
+    """name -> one call of ``segment_aggregate``, ``cloud_aggregate`` or
+    ``segment_sum`` (adding into an accumulator, as the streaming path
+    calls it) at each case's shape."""
     accs = {case: torch.zeros(m, x.shape[1], device=x.device)
             for case, (x, _, _, m) in s_cases.items()}
-    for name, calls in (
-            ("segment_aggregate", [
-                lambda x=x, w=w, g=g, m=m: ha.segment_aggregate(x, w, g, m)
-                for x, w, g, m in cases.values()]),
-            ("segment_sum", [
-                lambda x=x, w=w, g=g, m=m, acc=accs[case]:
-                ha.segment_sum(x, w, g, m, out=acc)
-                for case, (x, w, g, m) in s_cases.items()])):
+    return {
+        "segment_aggregate": [
+            lambda x=x, w=w, g=g, m=m: ha.segment_aggregate(x, w, g, m)
+            for x, w, g, m in cases.values()],
+        "cloud_aggregate": [lambda x=x, w=w: ha.cloud_aggregate(x, w)
+                            for x, w, _, _ in cases.values()],
+        "segment_sum": [
+            lambda x=x, w=w, g=g, m=m, acc=accs[case]:
+            ha.segment_sum(x, w, g, m, out=acc)
+            for case, (x, w, g, m) in s_cases.items()]}
+
+
+def check_one_launch(calls_by_name: dict) -> None:
+    """The calls of each wrapper (name -> calls), one ``torch.profiler``
+    session a wrapper: only that wrapper's kernel runs, at most once a
+    call (the profiler may drop a record)."""
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    for name, calls in calls_by_name.items():
         launched = kernels_per_call(lambda: [fn() for fn in calls], flush)
         count = sum(c for c, _ in launched.values())
         check(bool(launched) and all(f"{name}_kernel" in k for k in launched)
@@ -601,20 +631,24 @@ def time_slice_rule(x, w, g, m) -> None:
         for (s, r, k), t in times) + f" (the rule picks {chosen})")
 
 
-def time_aggregate_warps_rule(x, w, g, m) -> None:
-    """``segment_aggregate`` with the warps a block its rule picks
-    (``hier_aggregate.segment_aggregate_warps``) against half and twice as
-    many, on the same inputs."""
+def time_aggregate_warps_rule(x, w, g, m, name="segment_aggregate") -> None:
+    """``segment_aggregate`` (or ``cloud_aggregate``) with the warps a
+    block its rule picks (``hier_aggregate.segment_aggregate_warps`` or
+    ``cloud_aggregate_warps``) against half and twice as many, on the same
+    inputs."""
     flush = torch.empty(256 * 2**20 // 4, device=x.device)
-    chosen = ha.segment_aggregate_warps(*x.shape, m)
+    if name == "segment_aggregate":
+        chosen = ha.segment_aggregate_warps(*x.shape, m)
+        call = lambda: ha.segment_aggregate(x, w, g, m)  # noqa: E731
+    else:
+        chosen = ha.cloud_aggregate_warps(*x.shape)
+        call = lambda: ha.cloud_aggregate(x, w)  # noqa: E731
     times = []
     for warps in sorted({max(1, chosen // 2), chosen,
                          min(ha.MAX_WARPS, 2 * chosen)}):
-        with mock.patch.object(ha, "segment_aggregate_warps",
-                               lambda *_: warps):
-            times.append((warps, time_ms(
-                lambda: ha.segment_aggregate(x, w, g, m), flush)))
-    print(f"  segment_aggregate N={x.shape[0]} warps: " + ", ".join(
+        with mock.patch.object(ha, f"{name}_warps", lambda *_: warps):
+            times.append((warps, time_ms(call, flush)))
+    print(f"  {name} N={x.shape[0]} warps: " + ", ".join(
         f"{k} -> {t * 1e3:.2f} us" for k, t in times)
         + f" (the rule picks {chosen})")
 
@@ -633,7 +667,8 @@ def fleet_shard(rank: int):
 
 def mean_cases():
     """name -> (x, w) for ``weighted_mean`` on the card: phase 9's slab,
-    a fleet-scale shard in fp32 and bf16, then the edge cases."""
+    the edge cases (row views from an odd row among them), then a
+    fleet-scale shard in fp32 and bf16."""
     rng = np.random.default_rng(2)
     cases = {}
     for name, n, f, edit in [
@@ -643,33 +678,53 @@ def mean_cases():
             ("ragged_n1030_f1001", 1030, 1001, None),
             ("one_nonzero_weight", 300, 1001, "one"),
             ("all_zero_weights", 40, 300, "zero"),
-            ("bf16_n513", 513, 1001, "bf16")]:
-        x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
+            ("bf16_n513", 513, 1001, "bf16"),
+            ("odd_row_view_f44426", 100, 44_426, "odd_row"),
+            ("bf16_odd_row_view", 100, 44_426, "bf16_odd_row")]:
+        odd = bool(edit) and "odd_row" in edit
+        x = torch.from_numpy(rng.normal(0, 1, (n + odd, f))
+                             .astype(np.float32))
         w = torch.from_numpy(rng.uniform(200, 1000, n).astype(np.float32))
-        if edit == "bf16":
+        if edit in ("bf16", "bf16_odd_row"):
             x = x.to(torch.bfloat16)
         if edit == "one":
             w[:] = 0.0
             w[n // 2] = 3.0
         if edit == "zero":
             w[:] = 0.0
-        cases[name] = (x.cuda(), w.cuda())
+        # a row view from row 1, as in kernel_cases
+        cases[name] = (x.cuda()[1:] if odd else x.cuda(), w.cuda())
     x, w = fleet_shard(0)
     cases["fleet_n16384_f44426"] = (x, w)
     cases["bf16_fleet"] = (x.to(torch.bfloat16), w)
     return cases
 
 
+def counters_at_zero() -> bool:
+    """The tile counters of ``segment_sum`` and ``weighted_mean`` on the
+    card (if a launch has made them) are all 0, as every launch leaves
+    them."""
+    return all(int(c.count_nonzero()) == 0 for c, _ in ha._scratch.values())
+
+
+def plan_line(x) -> str:
+    slices, rows, warps = ha.weighted_mean_plan(*x.shape)
+    return f"{slices} row slices of {rows}, {warps} warps a block"
+
+
 def check_mean_against_plain(cases) -> float:
     """``weighted_mean`` on each case against its plain version, bit for
     bit between two launches, NaN for all-zero weights (0/0, as the
-    reference); returns the largest absolute error."""
+    reference), the tile counters back at 0 after each case; returns the
+    largest absolute error."""
     worst = 0.0
     for case, (x, w) in cases.items():
         out = ha.weighted_mean(x, w)
         again = ha.weighted_mean(x, w)
         ref = ha.weighted_mean_plain(x, w)
         torch.cuda.synchronize()
+        check(counters_at_zero(), f"weighted_mean on {case}: tile counters "
+              "not back at 0")
         check(out.dtype == torch.float32 and tuple(out.shape) ==
               (x.shape[1],), f"weighted_mean on {case}: dtype/shape")
         if case == "all_zero_weights":
@@ -692,16 +747,16 @@ def check_mean_against_plain(cases) -> float:
                   "weighted_mean: one nonzero weight gives that row")
         worst = max(worst, err)
         print(f"  {'weighted_mean':17s} {case:22s} max|err| {err:.3e} "
-              f"(scale {scale:.3e}; "
-              f"{ha.weighted_mean_slices(*x.shape)[0]} row slices)")
+              f"(scale {scale:.3e}; {plan_line(x)}; loads of "
+              f"{ha.load_width(x.shape[1], x.element_size(), x.data_ptr())})")
     return worst
 
 
-def time_mean(x, w) -> dict:
+def time_mean(x, w, note: str = "") -> dict:
     """``weighted_mean``, its plain version and, for fp32, the library
     yardstick ``torch.mv(x.t(), w) / w.sum()``, and its bound from this
     input's bytes (the slab and w read once, the mean written once) and
-    operations."""
+    operations; ``note`` is printed after them."""
     flush = torch.empty(256 * 2**20 // 4, device=x.device)   # > 50 MB L2
     n, f = x.shape
     fp32 = x.dtype == torch.float32
@@ -721,30 +776,37 @@ def time_mean(x, w) -> dict:
            "torch.mv (fp32 only)")
     print(f"  {'weighted_mean':17s} N={n} F={f} {str(x.dtype)[6:]}: kernel "
           f"{r['ms'] * 1e3:9.2f} us   plain {r['plain_ms'] * 1e3:9.2f} us   "
-          f"{lib}   bound {r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']}; "
-          f"{ha.weighted_mean_slices(n, f)[0]} row slices)")
+          f"{lib}   bound {r['bound_ms'] * 1e3:8.2f} us ({r['bound_by']})"
+          f"{note}")
     return r
 
 
 def time_mean_slice_rule(x, w) -> None:
-    """``weighted_mean`` with the slice count its rule picks
-    (``hier_aggregate.MEAN_BLOCKS_PER_SM``) against half and twice as many
-    slices and a sweep of others, on the same inputs."""
+    """``weighted_mean`` with the split its plan picks
+    (``hier_aggregate.weighted_mean_plan``: slices and warps a block)
+    against half and twice its slices at its warps, and at 4, 8 and 16
+    warps a block against the slices that fill 1, 2, 4, 8 and 16 waves, on
+    the same inputs."""
     flush = torch.empty(256 * 2**20 // 4, device=x.device)
-    n = x.shape[0]
-    chosen = ha.weighted_mean_slices(*x.shape)[0]
+    n, f = x.shape
+    tiles = -(-f // ha.TILE)
+    chosen, _, warps = ha.weighted_mean_plan(n, f)
+    splits = {(max(1, chosen // 2), warps), (chosen, warps),
+              (2 * chosen, warps)}
+    for k in (4, 8, 16):
+        wave = ha.NUM_SMS * (ha.ONE_GROUP_RESIDENT_WARPS // k) // tiles
+        splits |= {(max(waves, waves * wave), k)
+                   for waves in (1, 2, 4, 8, 16)}
     times = []
-    for slices in sorted({1, 2, 3, 4, 6, 8, 12, 16, 32, max(1, chosen // 2),
-                          chosen, 2 * chosen}):
+    for slices, k in sorted(splits, key=lambda s: (s[1], s[0])):
         rows = -(-n // slices)
-        rows = -(-rows // ha.ROWS) * ha.ROWS
-        split = (-(-n // rows), rows)
-        with mock.patch.object(ha, "weighted_mean_slices", lambda *_: split):
-            times.append((split[0], time_ms(lambda: ha.weighted_mean(x, w),
-                                            flush)))
-    print("  weighted_mean     slices: " + ", ".join(
-        f"{s} -> {t * 1e3:.2f} us" for s, t in times)
-        + f" (the rule picks {chosen})")
+        plan = (-(-n // rows), rows, k)
+        with mock.patch.object(ha, "weighted_mean_plan", lambda *_: plan):
+            times.append((plan, time_ms(lambda: ha.weighted_mean(x, w),
+                                        flush)))
+    print(f"  weighted_mean     N={n} {str(x.dtype)[6:]} splits: " + ", ".join(
+        f"{s} x {k} warps -> {t * 1e3:.2f} us" for (s, _, k), t in times)
+        + f" (the plan picks {chosen} x {warps} warps)")
 
 
 # B, Sq, Sk, H, K, hd, causal, window: tests/test_kernels.py's ATTN_CASES,
@@ -1241,7 +1303,7 @@ def phase_main_path(sch, plan_s, ue_data, test):
     torch.cuda.synchronize()
     print(f"one more cloud round, warm: {time.perf_counter() - t0:.3f} s")
     profile_round(sim, test)
-    return launches, run_summary(res)
+    return launches
 
 
 def run_summary(res) -> dict:
@@ -1694,6 +1756,7 @@ def sharded_rank(sch, ue_data, test) -> dict:
     import torch.distributed as dist
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True       # as phase_sharded
     mesh = make_agg_mesh(1, SHARD_RANKS, timeout=datetime.timedelta(
         seconds=RANK_TIMEOUT_S))
     sim = make_sim(sch, ue_data, mesh.device, mesh=mesh)
@@ -1732,11 +1795,27 @@ def sharded_rank(sch, ue_data, test) -> dict:
                 fleet_finite=bool(torch.isfinite(out).all()))
 
 
-def phase_sharded(sch, ue_data, test, unsharded) -> dict:
+def phase_sharded(sch, ue_data, test) -> dict:
     """Phase 9; returns each kernel's launches summed over the ranks and
     over the sharded run and the fleet-scale event."""
-    # The spread of phase 3's run itself, over the same ROUNDS rounds, when
-    # its init moves by SENSITIVITY_NOISE relative (the largest over
+    # cuDNN's default algorithms make a LeNet run on the card differ from
+    # itself from run to run: two runs of phase 3's problem came up to
+    # 7.7e-6 apart in train loss and 3.7e-4 in the params, as far as the
+    # sharded run lies from either.  So the reference (phase 3's run
+    # again), its moved runs and the ranks take cuDNN's deterministic
+    # algorithms, and each gives the same result on every run.
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_sharded(sch, ue_data, test)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _phase_sharded(sch, ue_data, test) -> dict:
+    unsharded = run_summary(make_sim(sch, ue_data, "cuda").run(
+        test, rounds=ROUNDS))
+    # The spread of that run itself, over the same ROUNDS rounds, when its
+    # init moves by SENSITIVITY_NOISE relative (the largest over
     # SPREAD_SEEDS draws of the move: one draw's train-loss spread came out
     # 10x under its test-loss one): the sharded run differs from it only
     # in the order of the cloud sums.
@@ -1782,7 +1861,7 @@ def phase_sharded(sch, ue_data, test, unsharded) -> dict:
         else:
             diff = float(np.abs(first[key] - unsharded[key]).max())
         ratio = diff / max(spread[key], 1e-30)
-        print(f"  sharded vs phase 3's unsharded run, {key}: max|diff| "
+        print(f"  sharded vs the unsharded run, {key}: max|diff| "
               f"{diff:.3e}; spread of that run under a {SENSITIVITY_NOISE:g} "
               f"init move {spread[key]:.3e} (largest of "
               f"{len(SPREAD_SEEDS)} moves; ratio {ratio:.2f})")
@@ -1819,21 +1898,31 @@ def phase_sharded(sch, ue_data, test, unsharded) -> dict:
 
 
 def time_aggregation() -> int:
-    """``--time-aggregation``: K1 and K4 timed at the paths' shapes and
-    phase 6, nothing else.  Only the wrappers' signatures are used, so the
-    same script times an older tree's kernels (copy it into that tree) in
-    the same call, for a comparison on one card."""
+    """``--time-aggregation``: K1, K2, K3 and K4 timed at the paths'
+    shapes and phase 6, nothing else.  Only the wrappers' signatures are
+    used, so the same script times an older tree's kernels (copy it into
+    that tree) in the same call, for a comparison on one card."""
     print("== aggregation kernels only")
     t0 = time.perf_counter()
-    paths = build.build(["segment_aggregate", "segment_sum"])
+    paths = build.build(["segment_aggregate", "cloud_aggregate",
+                         "weighted_mean", "segment_sum"])
     print(f"built {', '.join(paths)} in {time.perf_counter() - t0:.2f} s")
+    for name, path in paths.items():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line:
+                print(f"  {name}: {line.strip()}")
     cases = kernel_cases("cuda")
-    time_kernels(*cases["main_n100_f44426"], names=("segment_aggregate",))
+    time_kernels(*cases["main_n100_f44426"])
     time_kernels(*cases["slab_n60_f44426"], names=("segment_aggregate",))
     s_cases = sum_cases("cuda")
     time_segment_sum(*s_cases["stream_n8192_f1024"])
     time_segment_sum(*s_cases["lenet_n100_f44426"])
+    time_mean(*cases["slab_n60_f44426"][:2])
     del cases, s_cases
+    x, w = fleet_shard(0)
+    time_mean(x, w)
+    time_mean(x.to(torch.bfloat16), w)
+    del x, w
     phase_streaming()
     return 0
 
@@ -1864,9 +1953,11 @@ def main(argv=None) -> int:
     time_kernels(*cases["slab_n60_f44426"], names=("segment_aggregate",))
     time_aggregate_warps_rule(*cases["main_n100_f44426"])
     time_aggregate_warps_rule(*cases["slab_n60_f44426"])
+    time_aggregate_warps_rule(*cases["main_n100_f44426"],
+                              name="cloud_aggregate")
     s_cases = sum_cases("cuda")
     errs["segment_sum"] = check_segment_sum_against_plain(s_cases)
-    check_one_launch(cases, s_cases)
+    check_one_launch(aggregation_calls(cases, s_cases))
     timing["segment_sum"] = time_segment_sum(*s_cases["stream_n8192_f1024"])
     time_slice_rule(*s_cases["stream_n8192_f1024"])
     time_segment_sum(*s_cases["lenet_n100_f44426"])
@@ -1887,15 +1978,21 @@ def main(argv=None) -> int:
         time_split_rule(case)
     m_cases = mean_cases()
     errs["weighted_mean"] = check_mean_against_plain(m_cases)
-    timing["weighted_mean"] = time_mean(*m_cases["slab_n60_f44426"])
-    time_mean(*m_cases["fleet_n16384_f44426"])
-    time_mean(*m_cases["bf16_fleet"])
-    time_mean_slice_rule(*m_cases["fleet_n16384_f44426"])
+    check_one_launch({"weighted_mean": [
+        lambda x=x, w=w: ha.weighted_mean(x, w)
+        for x, w in m_cases.values()]})
+    for case in ("slab_n60_f44426", "fleet_n16384_f44426", "bf16_fleet"):
+        x, w = m_cases[case]
+        r = time_mean(x, w, note=f"; {plan_line(x)}")
+        timing.setdefault("weighted_mean", r)
+    del x, w
+    for case in ("slab_n60_f44426", "fleet_n16384_f44426", "bf16_fleet"):
+        time_mean_slice_rule(*m_cases[case])
     del m_cases
 
     print("== phase 3: main path at full width")
     sch, plan_s, ue_data, test = main_path_inputs()
-    launches, unsharded = phase_main_path(sch, plan_s, ue_data, test)
+    launches = phase_main_path(sch, plan_s, ue_data, test)
 
     print("== phase 4: the card against the CPU, one cloud round")
     card_sync, spread = phase_card_vs_cpu(sch, ue_data, test)
@@ -1929,7 +2026,7 @@ def main(argv=None) -> int:
         launches[name] = served["launches"][name] + glm["launches"][name]
 
     print("== phase 9: data-sharded sync Algorithm 1, 2 ranks on the card")
-    sharded = phase_sharded(sch, ue_data, test, unsharded)
+    sharded = phase_sharded(sch, ue_data, test)
     for name in ("segment_aggregate", "weighted_mean"):
         launches[name] += sharded[name]
 

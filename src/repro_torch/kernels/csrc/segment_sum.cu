@@ -53,23 +53,6 @@ __device__ __forceinline__ void add_to_out(float* __restrict__ out, int64_t n_co
     if (c + j < width) p[j] += v[j];
 }
 
-// The n float4s at p, p + stride, ..., added in that order: SPAN loads in
-// flight at a time.
-__device__ __forceinline__ float4 slice_order_sum(const float4* p, int64_t stride, int n) {
-  constexpr int SPAN = 16;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = 0; k0 < n; k0 += SPAN) {
-    float4 v[SPAN];
-#pragma unroll
-    for (int j = 0; j < SPAN; ++j)
-      v[j] = k0 + j < n ? __ldcg(p + (k0 + j) * stride) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < SPAN; ++j)
-      if (k0 + j < n) s = seg::operator+(s, v[j]);
-  }
-  return s;
-}
-
 // grid (column tiles, slices), `warps` warps a block.  Block (i, s) sums
 // rows [s * rows_per_slice, min((s + 1) * rows_per_slice, n_rows)) of
 // columns [i * TILE, (i + 1) * TILE).
@@ -120,7 +103,8 @@ segment_sum_kernel(const T* __restrict__ x, const float* __restrict__ w,
   // The other slices' partials, fenced before they counted, are read from
   // the L2 (__ldcg), past this SM's L1.
   for (int i = threadIdx.x; i < entries4; i += blockDim.x)
-    add_to_out(out, n_cols, col0, width, i, slice_order_sum(tile_partials + i, entries4, n_slices));
+    add_to_out(out, n_cols, col0, width, i,
+               seg::slice_order_sum<16>(tile_partials + i, entries4, n_slices));
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 

@@ -17,11 +17,13 @@ buffer: the wrappers of the four CUDA kernels and their plain versions.
   accumulator.  Kernel ``csrc/segment_sum.cu``; replaces
   ``hier_segment_sum_2d`` (``hier_aggregate.py:263``).
 
-``segment_aggregate`` and ``segment_sum`` share their row sums
-(``csrc/segment_core.cuh``) and are one launch a call each; their wrappers
-pick the load width from x's row length and address (``load_width``), the
-warps a block (``block_warps``) and ``segment_sum``'s row slices
-(``segment_sum_plan``), and keep ``segment_sum``'s workspace per device.
+All four share their row sums (``csrc/segment_core.cuh``; ``cloud_aggregate``
+and ``weighted_mean`` take its one-group case) and are one launch a call
+each; their wrappers pick the load width from x's row length and address
+(``load_width``), the warps a block (``block_warps``) and the row slices
+of ``segment_sum`` and ``weighted_mean`` (``segment_sum_plan``,
+``weighted_mean_plan``), and keep the slices' workspace per device
+(``_workspace``).
 
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
@@ -37,36 +39,38 @@ import torch
 from repro_torch.kernels import build
 
 TILE = 128                     # columns per block, as in csrc/*.cu
-ROWS = 16                      # rows per step of weighted_mean's row loop
 SMEM_BYTES = 232_448           # the shared memory an H100 block may use
 NUM_SMS = 132                  # streaming multiprocessors of an H100 SXM
 #: Most groups ``segment_aggregate`` and ``segment_sum`` take: one warp's
 #: (M, TILE) sums and (M,) weight sums live in one block's shared memory.
 MAX_GROUPS = SMEM_BYTES // (4 * (TILE + 1))
-#: Most warps a ``segment_aggregate`` or ``segment_sum`` block splits its
-#: rows over, and the rows a warp loads at once (``csrc/segment_core.cuh``).
+#: Most warps a block of the four kernels splits its rows over, and the
+#: rows a warp loads at once (``csrc/segment_core.cuh``; 16 in the
+#: one-group kernels' bf16, which keep them packed).
 MAX_WARPS = 16
 WARP_ROWS = 8
 #: Warps an SM holds at once at those kernels' 63-80 registers a thread
 #: (ptxas, ``chip_smoke.py`` phase 1): three 8-warp blocks.  Their grids
 #: stay within one wave of that.
 RESIDENT_WARPS = 24
+#: The same for ``cloud_aggregate`` and ``weighted_mean`` (one group: no
+#: per-group slots) at their 58-64 registers a thread in fp32: 32 warps.
+#: (Their bf16 kernels, 16 rows a batch, take 70-83: 24 warps.)
+ONE_GROUP_RESIDENT_WARPS = 32
+#: ``weighted_mean``'s plan: blocks of at most ``MEAN_WARPS`` warps, and
+#: row slices for about ``MEAN_WAVES`` waves of them, at most
+#: ``MEAN_MAX_SLICES`` (the last block of a column tile adds its slices'
+#: partials one L2 round trip per 8).  At a 16,384 x 44,426 shard on an
+#: H100, 12 slices of 8 warps (7.9 waves) took 967 us in fp32 and 503 us in
+#: bf16, 3 slices of 4 warps (one wave) 1,001 and 602 us
+#: (``chip_smoke.py`` phase 2 sweeps them on every run).
+MEAN_WARPS = 8
+MEAN_WAVES = 8
+MEAN_MAX_SLICES = 32
 #: ``segment_sum`` splits the rows into slices for about one block per SM
 #: (a column tile and a slice a block), of at least ``MIN_SLICE_ROWS``
 #: rows each.
 MIN_SLICE_ROWS = 64
-#: ``weighted_mean``'s slice rule aims at this many blocks per SM: about
-#: six waves of the ten 128-thread blocks an SM holds at once (48
-#: registers a thread), so that a last, partial wave costs little.  At a
-#: 16,384 x 44,426 shard, 4 slices (1,392 blocks: one wave and 72 blocks)
-#: were slower than 3 or than 7 and more (``chip_smoke.py`` phase 2 times
-#: the rule's choice against other slice counts on every run).
-MEAN_BLOCKS_PER_SM = 64
-#: Fewest rows in a ``weighted_mean`` slice (at 16,384 x 1,024, 128-row
-#: slices beat 64-row ones), and most slices: the combine pass adds a
-#: column's slices one after another.
-MEAN_MIN_SLICE_ROWS = 128
-MEAN_MAX_SLICES = 1024
 
 launch_counts = {"segment_aggregate": 0, "cloud_aggregate": 0,
                  "segment_sum": 0, "weighted_mean": 0}
@@ -77,18 +81,20 @@ _INT = ctypes.c_int
 _ARGTYPES = {
     "segment_aggregate": [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT,
                           _INT, _P],
-    "cloud_aggregate": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
+    "cloud_aggregate": [_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT,
+                        _P],
     "segment_sum": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _I64, _INT,
                     _INT, _INT, _INT, _INT, _P],
-    "weighted_mean": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _INT, _P],
+    "weighted_mean": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT,
+                      _INT, _INT, _INT, _P],
 }
 
 
-#: Per device: ``segment_sum``'s tile counters (int32, zeroed once; the
-#: kernel leaves them 0) and its fp32 workspace of the slices' partial
-#: sums, grown on demand, so that a call allocates nothing.  The port
-#: launches on one stream: two launches on two streams at once would share
-#: them.
+#: Per device: the tile counters of ``segment_sum`` and ``weighted_mean``
+#: (int32, zeroed once; the kernels leave them 0) and their fp32 workspace
+#: of the slices' partial sums, grown on demand, so that a call allocates
+#: nothing.  The port launches on one stream: two launches on two streams
+#: at once would share them.
 _scratch: dict = {}
 
 
@@ -170,26 +176,25 @@ def segment_sum_plain(x, w, group_ids, num_groups: int):
 
 
 def load_width(n_cols: int, element_size: int, data_ptr: int) -> int:
-    """Elements of x per load in ``segment_aggregate`` and ``segment_sum``:
-    4, 2 or 1, the widest that divides the row's length and whose bytes
-    divide x's address (16-, 8- or 4-byte loads in fp32; 8, 4 or 2 bytes
-    in bf16)."""
+    """Elements of x per load in the four kernels: 4, 2 or 1, the widest
+    that divides the row's length and whose bytes divide x's address (16-,
+    8- or 4-byte loads in fp32; 8, 4 or 2 bytes in bf16)."""
     for vec in (4, 2):
         if n_cols % vec == 0 and data_ptr % (vec * element_size) == 0:
             return vec
     return 1
 
 
-def block_warps(rows: int, blocks: int, slot_floats: int) -> int:
-    """Warps of each of ``blocks`` ``segment_aggregate`` or ``segment_sum``
-    blocks over ``rows`` rows: a power of two, one a ``WARP_ROWS`` rows (so
-    that a warp has all its rows' loads in flight at once), at most
-    ``MAX_WARPS``, no more than keep the grid within one wave of
-    ``RESIDENT_WARPS`` warps an SM, and no more than whose
+def block_warps(rows: int, blocks: int, slot_floats: int,
+                resident: int = RESIDENT_WARPS) -> int:
+    """Warps of each of ``blocks`` blocks over ``rows`` rows: a power of
+    two, one a ``WARP_ROWS`` rows (so that a warp has all its rows' loads
+    in flight at once), at most ``MAX_WARPS``, no more than keep the grid
+    within one wave of ``resident`` warps an SM, and no more than whose
     ``slot_floats``-float slots fit in shared memory."""
     warps = 1
     while (warps < MAX_WARPS and warps * WARP_ROWS < rows
-           and 2 * warps * blocks <= RESIDENT_WARPS * NUM_SMS
+           and 2 * warps * blocks <= resident * NUM_SMS
            and 2 * warps * slot_floats * 4 <= SMEM_BYTES):
         warps *= 2
     return warps
@@ -222,33 +227,50 @@ def segment_aggregate(x, w, group_ids, num_groups: int):
     return out
 
 
+def cloud_aggregate_warps(n_rows: int, n_cols: int) -> int:
+    """Warps a ``cloud_aggregate`` block (one column tile, every row)
+    splits its rows over: ``block_warps`` at the one-group kernels'
+    ``ONE_GROUP_RESIDENT_WARPS``."""
+    return block_warps(n_rows, -(-n_cols // TILE), TILE + 1,
+                       ONE_GROUP_RESIDENT_WARPS)
+
+
 def cloud_aggregate(x, w):
     """Cloud aggregation (eq. 10).  x: (N, F) fp32|bf16, w: (N,) fp32 ->
-    (N, F) fp32 with every row ``sum_n w_n x_n / sum_n w_n``."""
+    (N, F) fp32 with every row ``sum_n w_n x_n / sum_n w_n``.  No guard:
+    all-zero weights give NaN, as in the reference."""
     _check(x, w)
     if x.device.type == "cpu":
         return cloud_aggregate_plain(x, w)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel():
+        n, f = x.shape
         _launch("cloud_aggregate", x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), x.shape[0], x.shape[1],
+                out.data_ptr(), n, f, cloud_aggregate_warps(n, f),
+                load_width(f, x.element_size(), x.data_ptr()),
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
-def weighted_mean_slices(n_rows: int, n_cols: int):
-    """``(slices, rows per slice)`` that ``weighted_mean`` splits the rows
-    into: enough slices for about ``MEAN_BLOCKS_PER_SM`` blocks per SM with
-    one block per column tile and slice, at least ``MEAN_MIN_SLICE_ROWS``
-    rows each and at most ``MEAN_MAX_SLICES`` slices.  One slice when the
-    column tiles alone fill the card."""
+def weighted_mean_plan(n_rows: int, n_cols: int):
+    """``(slices, rows per slice, warps per block)`` of a ``weighted_mean``
+    launch, a block a column tile and row slice: a power of two of warps,
+    one a ``WARP_ROWS`` rows, at most ``MEAN_WARPS``; slices for the most
+    blocks within ``MEAN_WAVES`` waves of ``ONE_GROUP_RESIDENT_WARPS``
+    warps an SM, at most ``MEAN_MAX_SLICES`` and at least ``WARP_ROWS``
+    rows a warp.  Many whole waves, so that a last one short of blocks
+    costs little.  One slice when the rows are fewer than two load
+    batches a warp (phase 9's 60-row slab: its 348 tiles fill the card)."""
     tiles = -(-n_cols // TILE)
-    slices = max(1, min(-(-MEAN_BLOCKS_PER_SM * NUM_SMS // tiles),
-                        n_rows // MEAN_MIN_SLICE_ROWS, MEAN_MAX_SLICES))
-    rows = -(-n_rows // slices)
-    rows = max(ROWS, -(-rows // ROWS) * ROWS)
-    return max(1, -(-n_rows // rows)), rows
+    warps = 1
+    while warps < MEAN_WARPS and warps * WARP_ROWS < n_rows:
+        warps *= 2
+    per_wave = NUM_SMS * (ONE_GROUP_RESIDENT_WARPS // warps)   # blocks
+    slices = max(1, min(MEAN_WAVES * per_wave // tiles, MEAN_MAX_SLICES,
+                        n_rows // (warps * WARP_ROWS)))
+    rows = max(1, -(-n_rows // slices))
+    return max(1, -(-n_rows // rows)), rows, warps
 
 
 def weighted_mean(x, w):
@@ -261,12 +283,18 @@ def weighted_mean(x, w):
     n, f = x.shape
     out = torch.empty(f, dtype=torch.float32, device=x.device)
     if f:
-        slices, rows = weighted_mean_slices(n, f)
-        partial = (torch.empty(slices * (f + 1), dtype=torch.float32,
-                               device=x.device) if slices > 1 else None)
+        slices, rows, warps = weighted_mean_plan(n, f)
+        counters = ws = None
+        if slices > 1:
+            tiles = -(-f // TILE)
+            counters, ws = _workspace(x.device, tiles,
+                                      tiles * slices * (TILE + 4))
         _launch("weighted_mean", x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                None if partial is None else partial.data_ptr(), n, f, rows,
-                slices, int(x.dtype == torch.bfloat16), x.device.index or 0,
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), n, f,
+                rows, slices, warps,
+                load_width(f, x.element_size(), x.data_ptr()),
+                int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
@@ -284,7 +312,7 @@ def segment_sum_plan(n_rows: int, n_cols: int, num_groups: int):
     return slices, rows, block_warps(rows, tiles * slices, num_groups * TILE)
 
 
-def _sum_scratch(device, tiles: int, floats: int):
+def _workspace(device, tiles: int, floats: int):
     """The device's tile counters (at least ``tiles``) and workspace (at
     least ``floats``), grown when a launch needs more."""
     counters, ws = _scratch.get(device, (None, None))
@@ -323,8 +351,8 @@ def segment_sum(x, w, group_ids, num_groups: int, out=None):
         counters = ws = None
         if slices > 1:
             tiles = -(-f // TILE)
-            counters, ws = _sum_scratch(x.device, tiles,
-                                        tiles * slices * num_groups * TILE)
+            counters, ws = _workspace(x.device, tiles,
+                                      tiles * slices * num_groups * TILE)
         _launch("segment_sum", x.data_ptr(), w.data_ptr(),
                 group_ids.data_ptr(), out.data_ptr(),
                 None if ws is None else ws.data_ptr(),

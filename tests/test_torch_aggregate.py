@@ -74,6 +74,25 @@ def test_cloud_aggregate_plain_matches_pallas_and_ref(name):
         out.numpy(), np.asarray(ref.hier_bcast_aggregate_ref(jx, jw)), **TOL)
 
 
+@pytest.mark.parametrize("n", [40, 600])
+def test_cloud_aggregate_all_zero_weights_give_nan_as_the_reference(n):
+    """No 1e-12 guard in eq. 10: all-zero weights give NaN in the plain
+    version (the CPU route and the kernel's oracle), as in
+    ``ref.hier_bcast_aggregate_ref`` and the JAX package's plain route
+    ``flat_cloud_aggregate(use_kernel=False)``, on both sides of the TPU
+    kernel's N = 512 split."""
+    x = np.random.default_rng(n).normal(0, 1, (n, 7)).astype(np.float32)
+    w = np.zeros(n, np.float32)
+    out = ha.cloud_aggregate_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert out.shape == (n, 7) and out.isnan().all()
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    assert np.isnan(np.asarray(ref.hier_bcast_aggregate_ref(jx, jw))).all()
+    assert np.isnan(np.asarray(
+        j_agg.flat_cloud_aggregate(jx, jw, use_kernel=False))).all()
+    assert ha.cloud_aggregate(torch.from_numpy(x),
+                              torch.from_numpy(w)).isnan().all()
+
+
 def test_cpu_wrappers_take_plain_versions_without_launching():
     _, _, _, m, tx, tw, tg, _ = _inputs("narrow")
     before = dict(ha.launch_counts)

@@ -27,7 +27,8 @@ def test_every_source_is_there_and_hashes():
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
 
 
-@pytest.mark.parametrize("name", ["segment_sum", "segment_aggregate"])
+@pytest.mark.parametrize("name", ["segment_sum", "segment_aggregate",
+                                  "cloud_aggregate", "weighted_mean"])
 def test_sources_list_the_header_they_include(name):
     files = build._with_headers(build.CSRC / f"{name}.cu")
     assert [f.name for f in files] == [f"{name}.cu", "segment_core.cuh"]
@@ -41,8 +42,9 @@ def test_editing_a_header_changes_the_path_of_its_includers(csrc):
     for name in build.SOURCES:
         includes = "segment_core.cuh" in (csrc / f"{name}.cu").read_text()
         assert (after[name] != before[name]) == includes, name
-    assert after["segment_sum"] != before["segment_sum"]
-    assert after["segment_aggregate"] != before["segment_aggregate"]
+    for name in ("segment_sum", "segment_aggregate", "cloud_aggregate",
+                 "weighted_mean"):
+        assert after[name] != before[name], name
 
 
 def test_editing_a_source_changes_only_its_path(csrc):

@@ -25,6 +25,7 @@ CASES = {
     "shard_slab_n60": (60, 44_426, 5, torch.float32, None),
     "odd_row_view_f44426": (100, 44_426, 5, torch.float32, "odd_row"),
     "bf16_odd_row_view_f44426": (100, 44_426, 5, torch.bfloat16, "odd_row"),
+    "odd_row_view_f1001": (100, 1001, 5, torch.float32, "odd_row"),
 }
 
 
@@ -62,12 +63,14 @@ def test_cuda_kernels_match_plain_versions(cuda, name):
     seg = ha.segment_aggregate(x, w, g, m)
     cloud = ha.cloud_aggregate(x, w)
     again = ha.segment_aggregate(x, w, g, m)
+    cloud_again = ha.cloud_aggregate(x, w)
     torch.cuda.synchronize()
     assert ha.launch_counts["segment_aggregate"] == \
         before["segment_aggregate"] + 2
     assert torch.equal(seg, again)          # no atomics: run to run equal
     assert ha.launch_counts["cloud_aggregate"] == \
-        before["cloud_aggregate"] + 1
+        before["cloud_aggregate"] + 2
+    assert torch.equal(cloud, cloud_again)
     for out, ref in ((seg, ha.segment_aggregate_plain(x, w, g, m)),
                      (cloud, ha.cloud_aggregate_plain(x, w))):
         assert out.dtype == torch.float32 and out.shape == x.shape
@@ -75,6 +78,52 @@ def test_cuda_kernels_match_plain_versions(cuda, name):
         assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     if edit == "zero_weight_group":
         assert (seg[g == 1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40, 600])
+def test_cuda_cloud_aggregate_all_zero_weights_give_nan(cuda, n):
+    """No guard, at every N: NaN like the plain version (the TPU kernel's
+    fall-through to the guarded segment kernel for N > 512 is not
+    followed)."""
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        0, 1, (n, 1001)).astype(np.float32)).to(cuda)
+    w = torch.zeros(n, device=cuda)
+    out = ha.cloud_aggregate(x, w)
+    assert ha.cloud_aggregate_plain(x, w).isnan().all()
+    assert out.shape == x.shape and out.isnan().all()
+
+
+def _device_kernels(fn):
+    """name -> count of the device kernels one run of ``fn`` launches
+    (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["cloud_aggregate", "weighted_mean"])
+def test_cuda_cloud_and_mean_launch_one_kernel_a_call(cuda, kernel):
+    """Every case's shape (the multi-slice ones of ``weighted_mean``
+    included) is one launch of the kernel and nothing else (at most one:
+    the profiler may drop a record)."""
+    if kernel == "cloud_aggregate":
+        inputs = [_inputs(CASES, name, cuda)[:2] for name in sorted(CASES)]
+    else:
+        inputs = [_mean_inputs(name, cuda) for name in sorted(MEAN_CASES)]
+    launched = _device_kernels(
+        lambda: [getattr(ha, kernel)(x, w) for x, w in inputs])
+    assert launched and all(f"{kernel}_kernel" in k for k in launched)
+    assert sum(launched.values()) <= len(inputs)
 
 
 @pytest.mark.cuda
@@ -135,22 +184,37 @@ MEAN_CASES = {
     "bf16": (513, 1001, torch.bfloat16, None),
     "path_slab": (60, 44_426, torch.float32, None),
     "many_rows_few_cols": (16_384, 1024, torch.float32, None),
+    "multi_slice_f44426": (4096, 44_426, torch.float32, None),
+    # row views from an odd row: 8-byte (fp32) and 4-byte (bf16) loads at
+    # F = 44,426, 4-byte loads at F = 1,001
+    "odd_row_view_f44426": (100, 44_426, torch.float32, "odd_row"),
+    "bf16_odd_row_view_f44426": (100, 44_426, torch.bfloat16, "odd_row"),
+    "odd_row_view_f1001": (513, 1001, torch.float32, "odd_row"),
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(MEAN_CASES))
-def test_cuda_weighted_mean_matches_plain_version(cuda, name):
+def _mean_inputs(name, device):
+    """(x, w) of ``MEAN_CASES[name]``, made from a seed; an ``odd_row`` x
+    is a view from row 1 of a buffer one row longer."""
     n, f, dtype, edit = MEAN_CASES[name]
     rng = np.random.default_rng(len(name))
-    x = torch.from_numpy(rng.normal(0, 1, (n, f)).astype(np.float32))
+    odd = edit == "odd_row"
+    x = torch.from_numpy(rng.normal(0, 1, (n + odd, f)).astype(np.float32))
     w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
     if edit == "one_nonzero":
         w[:] = 0.0
         w[n // 2] = 3.0
     if edit == "all_zero":
         w[:] = 0.0
-    x, w = x.to(cuda, dtype), w.to(cuda)
+    x = x.to(device, dtype)
+    return x[1:] if odd else x, w.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MEAN_CASES))
+def test_cuda_weighted_mean_matches_plain_version(cuda, name):
+    n, f, dtype, edit = MEAN_CASES[name]
+    x, w = _mean_inputs(name, cuda)
     before = ha.launch_counts["weighted_mean"]
     out = ha.weighted_mean(x, w)
     again = ha.weighted_mean(x, w)
@@ -166,6 +230,42 @@ def test_cuda_weighted_mean_matches_plain_version(cuda, name):
     assert torch.equal(out, again)          # no atomics: run to run equal
     if edit == "one_nonzero":
         assert (out - x[n // 2].float()).abs().max() <= 1e-6 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_mean_workspace_grows_and_counters_return_to_0(
+        cuda, monkeypatch):
+    """Multi-slice shapes in a row, a ``segment_sum`` between them: the
+    shared workspace grows for the larger one (never a smaller one reused),
+    the tile counters are 0 after every call, and the first shape's result
+    is the same bits after the others."""
+    monkeypatch.setattr(ha, "_scratch", {})
+    small, large = (_mean_inputs(name, cuda) for name in
+                    ("many_rows_few_cols", "multi_slice_f44426"))
+    for x, _ in (small, large):
+        assert ha.weighted_mean_plan(*x.shape)[0] > 1
+    first = ha.weighted_mean(*small)
+    torch.cuda.synchronize()
+    (counters, ws), = ha._scratch.values()
+    assert int(counters.count_nonzero()) == 0
+    x, w = large
+    slices = ha.weighted_mean_plan(*x.shape)[0]
+    tiles = -(-x.shape[1] // ha.TILE)
+    assert ws.numel() < tiles * slices * (ha.TILE + 4)
+    out = ha.weighted_mean(x, w)
+    torch.cuda.synchronize()
+    (counters, grown), = ha._scratch.values()
+    assert grown.numel() >= tiles * slices * (ha.TILE + 4)
+    assert int(counters.count_nonzero()) == 0
+    assert (out - ha.weighted_mean_plain(x, w)).abs().max() <= \
+        1e-5 * ha.weighted_mean_plain(x, w).abs().max()
+    sx, sw, sg, m = _inputs(SUM_CASES, "streaming_chunk", cuda)
+    ha.segment_sum(sx, sw, sg, m)
+    again = ha.weighted_mean(*small)
+    torch.cuda.synchronize()
+    (counters, _), = ha._scratch.values()
+    assert int(counters.count_nonzero()) == 0
+    assert torch.equal(first, again)
 
 
 # B, Sq, Sk, H, K, hd, causal, window, dtype, layout

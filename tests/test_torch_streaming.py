@@ -132,6 +132,22 @@ def test_segment_aggregate_warps_rule(n, f, m, warps):
             or 2 * warps * tiles > ha.RESIDENT_WARPS * ha.NUM_SMS)
 
 
+@pytest.mark.parametrize("n,f,warps", [
+    (100, 44_426, 8),                # phases 3 and 5: a LeNet cohort
+    (60, 44_426, 8), (1000, 1000, 16), (100, 1000, 16), (12, 37, 2),
+    (16, 1024, 2), (17, 1024, 4), (1, 44_426, 1),
+    (4096, 300_000, 1)])             # the grid's warps within one wave
+def test_cloud_aggregate_warps_rule(n, f, warps):
+    """``cloud_aggregate``: ``block_warps`` at the one-group kernels'
+    resident warps (no per-group slots to fit)."""
+    assert ha.cloud_aggregate_warps(n, f) == warps
+    tiles = -(-f // ha.TILE)
+    wave = ha.ONE_GROUP_RESIDENT_WARPS * ha.NUM_SMS
+    assert warps == 1 or warps * tiles <= wave
+    assert (warps == ha.MAX_WARPS or warps * ha.WARP_ROWS >= n
+            or 2 * warps * tiles > wave)
+
+
 # (F, element size, byte offset of x from an aligned base) -> elements a load
 @pytest.mark.parametrize("f,size,offset,vec", [
     (1024, 4, 0, 4),                 # the streaming chunk: 16-byte loads

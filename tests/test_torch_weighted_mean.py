@@ -4,7 +4,7 @@ mean of a data shard's slab), against the JAX package's Pallas kernel
 ``tests/test_kernels.py`` runs it) and its ``ref.hier_aggregate_ref``
 oracle, on the reference's ``AGG_CASES``: rtol 1e-5, atol 5e-5, the
 reference's own tolerance (the sums run in other orders).  Also the CPU
-wrapper, its input checks and the kernel's row-slice rule.  The CUDA kernel
+wrapper, its input checks and the kernel's launch plan.  The CUDA kernel
 itself is held to the plain version in ``test_torch_kernels.py``, on a
 card."""
 import numpy as np
@@ -113,19 +113,60 @@ def test_wrapper_rejects_inputs_the_kernel_does_not_take(bad):
         ha.weighted_mean(x, w)
 
 
-@pytest.mark.parametrize("n,f", [(0, 5), (1, 3), (60, 44_426), (100, 44_426),
-                                 (513, 1001), (16_384, 44_426),
-                                 (16_384, 1024), (1 << 20, 64)])
+# (N, F): the paths' shapes (phase 9's slab, a fleet-scale shard), the
+# LeNet cohort, few columns over many rows, and the edges
+PLAN_CASES = [(0, 5), (1, 3), (60, 44_426), (100, 44_426), (513, 1001),
+              (16_384, 44_426), (16_384, 1024), (1 << 20, 64), (4096, 44_426),
+              (12, 37), (600, 37), (40, 300)]
+
+
+def _wave(warps):
+    """Blocks of ``warps`` warps that the card holds at once."""
+    return ha.NUM_SMS * (ha.ONE_GROUP_RESIDENT_WARPS // warps)
+
+
+@pytest.mark.parametrize("n,f", PLAN_CASES)
 def test_slice_rule_covers_every_row_once(n, f):
-    """``weighted_mean_slices``: the slices cover the rows once, each a
-    multiple of the kernel's ROWS, the last not empty, at most
-    MEAN_MAX_SLICES, and no more blocks than the rule aims at unless one
-    slice per column tile is already past it."""
-    slices, rows = ha.weighted_mean_slices(n, f)
-    assert 1 <= slices <= ha.MEAN_MAX_SLICES
-    assert rows >= ha.ROWS and rows % ha.ROWS == 0
+    """``weighted_mean_plan``: the slices cover the rows once, the last
+    not empty, and the warps a block are a power of two within the kernel's
+    ``MAX_WARPS``."""
+    slices, rows, warps = ha.weighted_mean_plan(n, f)
+    assert slices >= 1 and rows >= 1
     assert slices * rows >= n and (slices - 1) * rows < max(n, 1)
+    assert 1 <= warps <= ha.MAX_WARPS and warps & (warps - 1) == 0
+
+
+@pytest.mark.parametrize("n,f", PLAN_CASES)
+def test_mean_plan_fills_whole_waves(n, f):
+    """The grid (a block a column tile and slice) stays within
+    ``MEAN_WAVES`` waves of the warps an SM holds, and where the waves
+    set the slices it fills them to within one slice of tiles: no last
+    wave short of blocks but by less than a slice.  A warp a
+    ``WARP_ROWS`` rows up to ``MEAN_WARPS``; a sliced plan gives every
+    warp at least ``WARP_ROWS`` rows (its loads in flight at once), and
+    at most ``MEAN_MAX_SLICES`` slices."""
+    slices, rows, warps = ha.weighted_mean_plan(n, f)
     tiles = -(-f // ha.TILE)
-    if slices > 1:
-        assert rows >= ha.MEAN_MIN_SLICE_ROWS
-        assert (slices - 1) * tiles < ha.MEAN_BLOCKS_PER_SM * ha.NUM_SMS
+    assert warps == ha.MEAN_WARPS or warps * ha.WARP_ROWS >= n
+    assert warps == 1 or (warps // 2) * ha.WARP_ROWS < n
+    assert slices <= ha.MEAN_MAX_SLICES
+    if slices == 1:
+        return
+    waves = ha.MEAN_WAVES * _wave(warps)
+    assert rows >= warps * ha.WARP_ROWS
+    assert tiles * slices <= waves
+    if slices < min(ha.MEAN_MAX_SLICES, n // (warps * ha.WARP_ROWS)):
+        assert tiles * (slices + 1) > waves
+
+
+@pytest.mark.parametrize("n,f,slices,rows,warps", [
+    (60, 44_426, 1, 60, 8),            # phase 9's slab: the tiles fill it
+    (100, 44_426, 1, 100, 8),          # a LeNet cohort: as many
+    (16_384, 44_426, 12, 1366, 8),     # the fleet shard: 4,176 of 4,224
+    (16_384, 1024, 32, 512, 8),        # 8 tiles: MEAN_MAX_SLICES
+    (12, 37, 1, 12, 2), (1, 1001, 1, 1, 1)])
+def test_mean_plan_at_the_paths_shapes(n, f, slices, rows, warps):
+    """One slice when the rows are fewer than two batches a warp (phase
+    9's slab), row slices for whole waves when there are many (the fleet
+    shard)."""
+    assert ha.weighted_mean_plan(n, f) == (slices, rows, warps)
