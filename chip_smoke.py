@@ -4,9 +4,10 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --time-aggregation`` times only
 ``segment_aggregate``, ``cloud_aggregate``, ``weighted_mean`` and
-``segment_sum`` and runs phase 6, through the wrappers alone: copied into
-an older tree, it times that tree's kernels, so two trees compare on one
-card in one call.)
+``segment_sum`` and runs phase 6, through the wrappers alone; ``python3
+chip_smoke.py --time-rounds`` times phase 3's warm sync round and phase
+5's async updates alone.  Copied into an older tree, either times that
+tree's code, so two trees compare on one card in one call.)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -89,7 +90,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    itself as much as the sharded run differs from it).  Then one sharded cloud event at fleet scale,
    2 ranks x 16,384 UE rows x 44,426 fp32 columns made on the card,
    against a float64 sum and all-reduce.
-10. Kernel records as JSON (``launches``: each path's count, read around
+10. The stochastic clock at full width, with cuDNN's deterministic
+   algorithms: phase 3's run under ``DeterministicDelays()`` gives phase
+   3's clock exactly and the params of a ``delay_model=None`` run bit for
+   bit; under the ``urban_stragglers`` scenario's model with
+   ``delay_seed=0`` a sync run of ROUNDS rounds (``b*`` ``segment_aggregate``
+   and one ``cloud_aggregate`` launch a round) has the clock of the rows
+   drawn on the card, within 1e-6 of the same draws made on the CPU, and
+   an async run at ``max_staleness=2`` (``b*`` launches a departure wave)
+   the timeline of ``events.simulate_async`` on the card-drawn matrix;
+   then its makespan against the sync barrier on the same draws and
+   ``makespan_distribution``'s p50/p95 over 64 trials drawn on the card.
+11. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phase 9, over the ranks), then the result line.
 
@@ -199,6 +211,12 @@ LENET_PARAMS = 44_426
 FLEET_ROWS = 16_384
 FLEET_SEED = 11
 RANK_TIMEOUT_S = 480
+# Phase 10: the stochastic clock on phase 3's problem and model.
+STOCH_SCENARIO = "urban_stragglers"
+STOCH_SEED = 0
+STOCH_TRIALS = 64
+CLOCK_RTOL = 1e-6            # card-drawn against CPU-drawn clock: float32
+                             # exp/log2 may differ by an ulp between them
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -1303,7 +1321,7 @@ def phase_main_path(sch, plan_s, ue_data, test):
     torch.cuda.synchronize()
     print(f"one more cloud round, warm: {time.perf_counter() - t0:.3f} s")
     profile_round(sim, test)
-    return launches
+    return launches, res.times
 
 
 def run_summary(res) -> dict:
@@ -1895,6 +1913,147 @@ def _phase_sharded(sch, ue_data, test) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10
+# ---------------------------------------------------------------------------
+
+
+def phase_stochastic(sch, ue_data, test, main_clock) -> dict:
+    """Phase 10; returns each kernel's launches over its stochastic sync
+    and async runs.  cuDNN's deterministic algorithms make the
+    bit-for-bit comparison a check of the clock, not of cuDNN."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_stochastic(sch, ue_data, test, main_clock)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _phase_stochastic(sch, ue_data, test, main_clock) -> dict:
+    # imported here, so that the script still imports in an older tree
+    # (``--time-aggregation``, ``--time-rounds``)
+    from repro_torch.core import (DeterministicDelays, scenario,
+                                  simulate_async)
+    from repro_torch.core.delay import makespan_distribution
+    from repro_torch.core.stochastic import Key
+    prob, assoc, a, b = sch.problem, sch.assoc, sch.a, sch.b
+    plain_sim = make_sim(sch, ue_data, "cuda")
+    plain = plain_sim.run(test, rounds=ROUNDS)
+    det = make_sim(sch, ue_data, "cuda",
+                   delay_model=DeterministicDelays()).run(test, rounds=ROUNDS)
+    print(f"DeterministicDelays(): clock {det.times.tolist()} against phase "
+          f"3's {main_clock.tolist()}")
+    check(np.array_equal(det.times, main_clock)
+          and np.array_equal(plain.times, main_clock),
+          "DeterministicDelays: the clock differs from phase 3's")
+    check(all(torch.equal(x, y) for x, y in
+              zip(tree_leaves(det.final_params),
+                  tree_leaves(plain.final_params))),
+          "DeterministicDelays: params differ from delay_model=None's")
+
+    model = scenario(STOCH_SCENARIO).model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = model.cycle_times(Key(STOCH_SEED, device="cuda"), prob, assoc, a,
+                             b, ROUNDS)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    cpu_rows = model.cycle_times(Key(STOCH_SEED, device="cpu"), prob, assoc,
+                                 a, b, ROUNDS)
+    sim = make_sim(sch, ue_data, "cuda", delay_model=model,
+                   delay_seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sim.run(test, rounds=ROUNDS, verbose=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"{STOCH_SCENARIO}, delay_seed={STOCH_SEED}: {ROUNDS} sync rounds "
+          f"in {run_s:.3f} s (first-call warm-up included); one draw of "
+          f"{ROUNDS} cycles x {b} edge rounds x {sch.num_ues} UEs on the card "
+          f"{draw_ms:.3f} ms (host clock, synchronised)")
+    print(f"launches during the stochastic sync path: {launches}")
+    check(launches == expect(segment_aggregate=b * ROUNDS,
+                             cloud_aggregate=ROUNDS),
+          f"launch counts {launches} != b*rounds={b * ROUNDS}, "
+          f"rounds={ROUNDS}")
+    check(np.array_equal(res.times, np.cumsum(rows.max(axis=1))),
+          "stochastic sync clock != the rows drawn on the card")
+    cpu_clock = np.cumsum(cpu_rows.max(axis=1))
+    rel = float(np.abs(res.times - cpu_clock).max() / cpu_clock.max())
+    print(f"  clock {res.times.tolist()} s against the deterministic "
+          f"{main_clock.tolist()}; against the same draws made on the CPU: "
+          f"max relative difference {rel:.3e}")
+    check(rel <= CLOCK_RTOL, f"card clock vs CPU draws {rel:.3e} > "
+          f"{CLOCK_RTOL}")
+    check(bool(np.isfinite(res.test_loss).all()
+               and np.isfinite(res.train_loss).all()),
+          "stochastic sync: finite losses")
+    # Warm rounds in turns, constant clock and stochastic, both under this
+    # phase's cuDNN algorithms: the draw is the only difference.
+    warm = {"constant": [], STOCH_SCENARIO: []}
+    for name, run_sim in (("constant", plain_sim), (STOCH_SCENARIO, sim),
+                          (STOCH_SCENARIO, sim), ("constant", plain_sim)):
+        t0 = time.perf_counter()
+        run_sim.run(test, rounds=1)
+        torch.cuda.synchronize()
+        warm[name].append(time.perf_counter() - t0)
+    print("one more sync round, warm, in turns: " + "; ".join(
+        f"{name} {', '.join(f'{t:.3f}' for t in ts)} s"
+        for name, ts in warm.items()))
+
+    asim = make_sim(sch, ue_data, "cuda", mode="async",
+                    max_staleness=ASYNC_STALENESS, delay_model=model,
+                    delay_seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ares = asim.run(test, rounds=ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    async_launches = counts()
+    tl = ares.timeline
+    waves = departure_waves(tl)
+    print(f"stochastic async path: max_staleness={ASYNC_STALENESS}, "
+          f"{len(tl.updates)} cloud updates, {waves} departure waves in "
+          f"{run_s:.3f} s ({run_s / len(tl.updates):.3f} s per update, "
+          f"first-call warm-up included)")
+    print(f"launches during the stochastic async path: {async_launches}")
+    check(async_launches == expect(segment_aggregate=b * waves),
+          f"launch counts {async_launches} != b*waves={b * waves}, 0, 0")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tree_leaves(ares.final_params)),
+          "stochastic async: finite params")
+    active = np.flatnonzero(assoc.sum(0) > 0)
+    cycles = model.cycle_times(Key(STOCH_SEED, device="cuda"), prob, assoc,
+                               a, b, ROUNDS + ASYNC_STALENESS)[:, active]
+    ref = simulate_async(cycles, rounds=ROUNDS,
+                         max_staleness=ASYNC_STALENESS)
+    check(tl.trace == ref.trace,
+          "stochastic async timeline != simulate_async on the card's draws")
+    barrier = float(cycles[:ROUNDS].max(axis=1).sum())
+    print(f"  async makespan {float(tl.makespan)!r} s simulated against "
+          f"the sync barrier {barrier!r} s on the same draws "
+          f"({barrier / tl.makespan:.4f}x)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = makespan_distribution(prob, assoc, a, b, rounds=ROUNDS,
+                              max_staleness=ASYNC_STALENESS, model=model,
+                              key=STOCH_SEED, num_trials=STOCH_TRIALS,
+                              device="cuda")
+    dist_s = time.perf_counter() - t0
+    print(f"  makespan_distribution, {STOCH_TRIALS} trials drawn on the "
+          f"card in {dist_s:.3f} s: async p50 {d['async_p50']!r} p95 "
+          f"{d['async_p95']!r}; sync p50 {d['sync_p50']!r} p95 "
+          f"{d['sync_p95']!r} s")
+    check(bool(np.isfinite(d["async_makespans"]).all()
+               and (d["async_makespans"] > 0).all()
+               and np.isfinite(d["sync_makespans"]).all()),
+          "makespan_distribution: finite, positive makespans")
+    return {name: launches[name] + async_launches[name] for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def time_aggregation() -> int:
@@ -1927,6 +2086,38 @@ def time_aggregation() -> int:
     return 0
 
 
+def time_rounds(repeats: int = 3) -> int:
+    """``--time-rounds``: phase 3's warm sync round (``repeats`` times)
+    and phase 5's async run per cloud update, on the constant clock,
+    nothing else.  Only the simulator's first arguments (no delay model)
+    are used, so the same script times an older tree's simulator (copy it
+    into that tree) in the same call, for a comparison on one card."""
+    print("== warm rounds of phases 3 and 5 only")
+    build.build(["segment_aggregate", "cloud_aggregate"])
+    sch, _, ue_data, test = main_path_inputs()
+    sim = make_sim(sch, ue_data, "cuda")
+    sim.run(test, rounds=1)
+    warm = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(test, rounds=1)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    asim = make_sim(sch, ue_data, "cuda", mode="async",
+                    max_staleness=ASYNC_STALENESS)
+    asim.run(test, rounds=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = asim.run(test, rounds=ROUNDS)
+    torch.cuda.synchronize()
+    updates = len(res.timeline.updates)
+    print(f"warm sync rounds: {', '.join(f'{t:.3f}' for t in warm)} s; "
+          f"async, warm: {(time.perf_counter() - t0) / updates:.3f} s per "
+          f"cloud update ({updates} updates)")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -1939,6 +2130,8 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0])
     if argv == ["--time-aggregation"]:
         return time_aggregation()
+    if argv == ["--time-rounds"]:
+        return time_rounds()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1992,7 +2185,7 @@ def main(argv=None) -> int:
 
     print("== phase 3: main path at full width")
     sch, plan_s, ue_data, test = main_path_inputs()
-    launches = phase_main_path(sch, plan_s, ue_data, test)
+    launches, main_clock = phase_main_path(sch, plan_s, ue_data, test)
 
     print("== phase 4: the card against the CPU, one cloud round")
     card_sync, spread = phase_card_vs_cpu(sch, ue_data, test)
@@ -2029,6 +2222,13 @@ def main(argv=None) -> int:
     sharded = phase_sharded(sch, ue_data, test)
     for name in ("segment_aggregate", "weighted_mean"):
         launches[name] += sharded[name]
+
+    print("== phase 10: the stochastic clock at full width")
+    t0 = time.perf_counter()
+    stochastic = phase_stochastic(sch, ue_data, test, main_clock)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    for name in ("segment_aggregate", "cloud_aggregate"):
+        launches[name] += stochastic[name]
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + ", ".join(KERNELS))

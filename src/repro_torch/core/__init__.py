@@ -1,19 +1,28 @@
 """The paper's contribution: hierarchical-FL time minimization.
 
 * ``problem``  — HFLProblem: wireless/compute topology (§III, §V-A).
-* ``delay``    — delay model eqs. (1)-(8), objective (13)/(15), and the
-  constant-delay async completion time.
+* ``delay``    — delay model eqs. (1)-(8), objective (13)/(15), the async
+  completion time and its distributions under per-cycle draws.
 * ``iteropt``  — sub-problem I: optimal (a, b); Alg. 2 dual + direct solver.
 * ``assoc``    — sub-problem II: Alg. 3 association + baselines.
 * ``schedule`` — HFLSchedule and ``plan``.
 * ``events``   — BEYOND-PAPER event-driven async edge-round timeline with
   SSP staleness gating (degenerates to the eq. 34 barrier at bound 0).
+* ``stochastic`` — BEYOND-PAPER per-cycle delay draws: ``DelayModel``
+  samplers on a keyed torch ``Key`` and the named ``Scenario`` registry.
+* ``faults``   — BEYOND-PAPER fault processes (dropout, churn, uplink
+  loss, edge outages) on the same keys.
 
-Every module here is numpy/scipy only; none imports torch.
+``stochastic`` and ``faults`` draw with torch; the other modules are
+numpy/scipy only, and ``DeterministicDelays`` stays in float64 numpy.
 """
 from repro_torch.core.events import AsyncTimeline, simulate_async
 from repro_torch.core.problem import HFLProblem
 from repro_torch.core.schedule import HFLSchedule, plan
+from repro_torch.core.stochastic import (SCENARIOS, DelayModel,
+                                         DeterministicDelays, Scenario,
+                                         scenario)
 
-__all__ = ["AsyncTimeline", "HFLProblem", "HFLSchedule", "plan",
-           "simulate_async"]
+__all__ = ["AsyncTimeline", "DelayModel", "DeterministicDelays",
+           "HFLProblem", "HFLSchedule", "SCENARIOS", "Scenario", "plan",
+           "scenario", "simulate_async"]

@@ -12,8 +12,9 @@ beyond-paper local searches ``refined`` and ``cluster_refined``):
 
 Copied from the JAX package's ``repro/core/assoc.py`` (numpy only): the
 strategies ``plan`` can name and the enumeration oracle ``exhaustive``.
-The stochastic ``refined`` objectives raise until their models are ported;
-the fault path's ``failover``/``orphans_of`` wait for a later slice.
+``refined(objective="joint")`` raises until ``core/jointopt.py`` is
+ported (ROADMAP Queue 1 item 10); the fault path's
+``failover``/``orphans_of`` wait for a later slice.
 """
 from __future__ import annotations
 
@@ -196,7 +197,8 @@ def _latency_terms(problem: HFLProblem, a: float):
 def refined(problem: HFLProblem, a: float = 10.0,
             max_moves: int = 500, incremental: bool = True,
             objective: str = "latency", b: float = 3.0, rounds: int = 8,
-            max_staleness: int = 2) -> np.ndarray:
+            max_staleness: int = 2, delay_model=None, q: float = 0.95,
+            num_trials: int = 24, delay_key=0, device=None) -> np.ndarray:
     """BEYOND-PAPER: Alg. 3 + bottleneck local search.
 
     Alg. 3 maximizes selected SNR, which is a proxy for the true objective
@@ -217,9 +219,16 @@ def refined(problem: HFLProblem, a: float = 10.0,
       BOUNDED regime, where balancing whole edge cycles matters more than
       the single worst UE.  Scored by full timeline simulation, so only
       the full-recompute search path applies (small N, M instances).
-    * ``"quantile_makespan"`` and ``"joint"`` — the stochastic
-      objectives of the JAX package; they raise ``NotImplementedError``
-      until its stochastic delay models are ported.
+    * ``"quantile_makespan"`` — the ``q``-quantile (default p95) of the
+      STOCHASTIC async makespan (``delay.quantile_makespan`` over
+      ``num_trials`` keyed trials of ``delay_model``, default the
+      ``urban_stragglers`` scenario): the robust association.  A fixed
+      ``delay_key`` gives every candidate the same draws (common random
+      numbers), so the descent is on a deterministic surface.
+      ``device`` places an int ``delay_key``'s draws (``None``: the card).
+    * ``"joint"`` — the same with the per-cell bandwidth split
+      re-optimized per candidate; it raises ``NotImplementedError`` until
+      ``core/jointopt.py`` is ported (ROADMAP Queue 1 item 10).
 
     ``incremental=True`` (default, latency objective only) evaluates each
     trial move by DELTA: a move only changes the two touched edges'
@@ -235,11 +244,22 @@ def refined(problem: HFLProblem, a: float = 10.0,
                 max_staleness=max_staleness)["makespan"]
         return _refined_full_recompute(problem, a, max_moves, cap,
                                        score=score)
-    if objective in ("quantile_makespan", "joint"):
+    if objective == "quantile_makespan":
+        if delay_model is None:
+            from repro_torch.core import stochastic
+            delay_model = stochastic.scenario("urban_stragglers").model
+
+        def score(A):
+            return delay.quantile_makespan(
+                problem, A, a, b, rounds=rounds,
+                max_staleness=max_staleness, model=delay_model,
+                key=delay_key, num_trials=num_trials, q=q, device=device)
+        return _refined_full_recompute(problem, a, max_moves, cap,
+                                       score=score)
+    if objective == "joint":
         raise NotImplementedError(
-            f"refined(objective={objective!r}) needs the stochastic delay "
-            "models, which are not ported yet (ROADMAP Queue 1 items 8 "
-            "and 10)")
+            "refined(objective='joint') needs core/jointopt.py, which is "
+            "not ported yet (ROADMAP Queue 1 item 10)")
     if objective != "latency":
         raise ValueError(f"unknown refined objective {objective!r}")
     if not incremental:

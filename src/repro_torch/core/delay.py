@@ -1,5 +1,5 @@
 """Delay model — eqs. (1)–(8), the objective of problem (13), and the
-BEYOND-PAPER asynchronous completion time under constant delays.
+BEYOND-PAPER asynchronous completion-time distribution.
 
 All functions are pure numpy over an ``HFLProblem`` instance and an
 association matrix ``assoc`` of shape (N, M) with 0/1 entries, one 1 per row.
@@ -16,10 +16,20 @@ outer max (the cloud barrier) and let each edge repeat its own cycle
 (``repro_torch.core.events``), merging at the cloud on arrival with a
 bounded staleness lag.
 
-Copied from the JAX package's ``repro/core/delay.py``: the deterministic
-part only.  Its per-cycle draws (``delay_model=``), the stochastic
-summaries and the fault-injected makespans wait for the port of the
-stochastic and fault models (ROADMAP Queue 1 items 8-9).
+Stochastic extension (``repro_torch.core.stochastic``): every function
+below that takes ``delay_model=``/``model=`` replaces the paper's
+constants with per-cycle draws — ``async_completion`` feeds a pre-sampled
+``(C, M)`` matrix to the event engine, the ``expected_``/``quantile_``
+variants of ``edge_round_time`` summarize the tau_m distribution, and
+``makespan_distribution``/``quantile_makespan`` Monte-Carlo the
+sync-vs-async makespan comparison.  Under draws the "sync makespan" is
+``sum_r max_m c_m^(r)``.  A function that draws takes ``key`` (a
+``stochastic.Key`` or an int seed) and ``device=``, used only for an int
+seed (``None``: the card).
+
+Copied from the JAX package's ``repro/core/delay.py``.  The fault-injected
+makespans (``faulty_async_completion``, ``fault_makespan_distribution``)
+wait for the port of the fault policy (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -131,27 +141,53 @@ def edge_cycle_time(problem: HFLProblem, assoc: np.ndarray, a, b) -> np.ndarray:
 
 
 def async_completion(problem: HFLProblem, assoc: np.ndarray, a, b, *,
-                     rounds: int, max_staleness: int) -> dict:
+                     rounds: int, max_staleness: int, delay_model=None,
+                     key=0, participation=None, device=None) -> dict:
     """Event-driven async completion-time statistics vs. the eq. 34 bound.
 
     Simulates ``rounds * M_active`` edge->cloud deliveries (the same
     communication work as ``rounds`` synchronous cloud rounds) over the
-    constant per-edge cycle times with SSP staleness gating
+    per-edge cycle times with SSP staleness gating
     (``repro_torch.core.events``).
+
+    With ``delay_model=`` (a ``repro_torch.core.stochastic.DelayModel``),
+    one ``cycle_times`` call pre-samples the whole
+    ``(rounds + max_staleness, M)`` matrix under ``key`` and every edge
+    cycle consumes a fresh row.  The sync reference then becomes
+    ``sum_r max_m c_m^(r)`` over the SAME draws (common random numbers).
+    ``delay_model=DeterministicDelays()`` reproduces the constant-delay
+    trace event-for-event.
 
     Returns a dict with the timeline and the headline quantities:
 
     * ``makespan``        — async wall clock for the delivery quota;
-    * ``sync_makespan``   — the synchronous bound ``rounds * T`` (eq. 34);
+    * ``sync_makespan``   — the synchronous bound: ``rounds * T`` (eq. 34),
+      or the per-round-max sum under draws;
     * ``speedup``         — sync_makespan / makespan (1.0 at max_staleness=0);
     * ``cloud_idle_frac`` — longest no-arrival window / makespan;
     * ``edge_busy_frac``  — (M,) per-edge compute fraction (0 for inactive);
     * ``arrivals``        — (t, edge, cycle, staleness) per delivery, in
       global edge indices.
+
+    ``participation``: optional bool ``(rounds + max_staleness, N)`` (or
+    ``(N,)``) cohort masks — each cycle's tau is the member max over that
+    cycle's participants only; without a ``delay_model`` the paper's
+    constants are used (``DeterministicDelays``).
     """
     active = np.flatnonzero(np.asarray(assoc).sum(0) > 0)
-    cycles = edge_cycle_time(problem, assoc, a, b)[active]
-    sync = float(rounds) * cloud_round_time(problem, assoc, a, b)
+    if delay_model is None and participation is not None:
+        from repro_torch.core import stochastic
+        delay_model = stochastic.DeterministicDelays()
+    if delay_model is None:
+        cycles = edge_cycle_time(problem, assoc, a, b)[active]
+        sync = float(rounds) * cloud_round_time(problem, assoc, a, b)
+    else:
+        kw = {} if participation is None else {"participation": participation}
+        draws = delay_model.cycle_times(key, problem, assoc, a, b,
+                                        int(rounds) + int(max_staleness),
+                                        device=device, **kw)
+        cycles = np.asarray(draws)[:, active]
+        sync = float(cycles[:int(rounds)].max(axis=1).sum())
     tl = events.simulate_async(cycles, rounds=int(rounds),
                                max_staleness=int(max_staleness))
     busy = np.zeros(problem.num_edges)
@@ -168,3 +204,116 @@ def async_completion(problem: HFLProblem, assoc: np.ndarray, a, b, *,
         "edge_busy_frac": busy,
         "arrivals": arrivals,
     }
+
+
+# ---------------------------------------------------------------------------
+# BEYOND-PAPER: stochastic-delay summaries (repro_torch.core.stochastic).
+# ---------------------------------------------------------------------------
+
+
+def edge_round_time_stats(problem: HFLProblem, assoc: np.ndarray, a, *,
+                          model, key=0, num_samples: int = 256,
+                          qs=(0.5, 0.95), device=None) -> dict:
+    """Monte-Carlo summary of tau_m (eq. 33) under a stochastic model.
+
+    One vectorized draw of ``num_samples`` edge rounds; returns
+    ``{"draws": (S, M), "mean": (M,), "quantiles": {q: (M,)}}``.  With
+    ``DeterministicDelays`` every row (and every quantile) equals
+    ``edge_round_time`` exactly; the mean only up to float summation.
+    """
+    draws = np.asarray(model.edge_round_times(key, problem, assoc, a,
+                                              int(num_samples),
+                                              device=device))
+    return {
+        "draws": draws,
+        "mean": draws.mean(axis=0),
+        "quantiles": {float(q): np.quantile(draws, q, axis=0) for q in qs},
+    }
+
+
+def expected_edge_round_time(problem: HFLProblem, assoc: np.ndarray, a, *,
+                             model, key=0, num_samples: int = 256,
+                             device=None) -> np.ndarray:
+    """E[tau_m] under ``model`` — the stochastic analogue of
+    ``edge_round_time`` (exactly it, for ``DeterministicDelays``)."""
+    return edge_round_time_stats(problem, assoc, a, model=model, key=key,
+                                 num_samples=num_samples,
+                                 device=device)["mean"]
+
+
+def quantile_edge_round_time(problem: HFLProblem, assoc: np.ndarray, a,
+                             q: float = 0.95, *, model, key=0,
+                             num_samples: int = 256,
+                             device=None) -> np.ndarray:
+    """Per-edge tau_m q-quantile — the straggler-aware round time the
+    deterministic eq. 33 understates."""
+    return edge_round_time_stats(problem, assoc, a, model=model, key=key,
+                                 num_samples=num_samples, qs=(q,),
+                                 device=device)["quantiles"][float(q)]
+
+
+def makespan_distribution(problem: HFLProblem, assoc: np.ndarray, a, b, *,
+                          rounds: int, max_staleness: int, model, key=0,
+                          num_trials: int = 64, device=None) -> dict:
+    """Monte-Carlo sync-vs-async makespan distributions under ``model``.
+
+    ONE vectorized draw covers all ``num_trials`` independent timelines
+    (``num_trials * (rounds + max_staleness)`` cycle rows, reshaped per
+    trial); each trial replays the event engine on its slice and scores
+    the synchronous barrier ``sum_r max_m c_m^(r)`` on the same rows.
+    Returns per-trial makespans plus p50/p95 summaries.
+    """
+    rounds, max_staleness = int(rounds), int(max_staleness)
+    n_cycles = rounds + max_staleness
+    active = np.flatnonzero(np.asarray(assoc).sum(0) > 0)
+    draws = np.asarray(model.cycle_times(key, problem, assoc, a, b,
+                                         int(num_trials) * n_cycles,
+                                         device=device))
+    draws = draws.reshape(int(num_trials), n_cycles, -1)[:, :, active]
+    async_ms = crn_async_makespans(draws, rounds=rounds,
+                                   max_staleness=max_staleness)
+    sync_ms = np.array([float(d[:rounds].max(axis=1).sum()) for d in draws])
+    return {
+        "async_makespans": async_ms,
+        "sync_makespans": sync_ms,
+        "async_p50": float(np.quantile(async_ms, 0.5)),
+        "async_p95": float(np.quantile(async_ms, 0.95)),
+        "sync_p50": float(np.quantile(sync_ms, 0.5)),
+        "sync_p95": float(np.quantile(sync_ms, 0.95)),
+        "speedup_p50": float(np.quantile(sync_ms, 0.5) /
+                             np.quantile(async_ms, 0.5)),
+        "speedup_p95": float(np.quantile(sync_ms, 0.95) /
+                             np.quantile(async_ms, 0.95)),
+    }
+
+
+def crn_async_makespans(cycles: np.ndarray, *, rounds: int,
+                        max_staleness: int) -> np.ndarray:
+    """Async makespans over PRE-SAMPLED per-trial cycle matrices
+    ``(num_trials, C, M_active)``: callers that score many candidates
+    against ONE keyed draw replay the event engine here, so per-trial
+    makespan gaps isolate the candidate, not the noise.  Returns the
+    (num_trials,) makespans."""
+    cycles = np.asarray(cycles, float)
+    rounds, max_staleness = int(rounds), int(max_staleness)
+    out = np.empty(cycles.shape[0])
+    for i in range(cycles.shape[0]):
+        tl = events.simulate_async(cycles[i, :rounds + max_staleness],
+                                   rounds=rounds,
+                                   max_staleness=max_staleness)
+        out[i] = tl.makespan
+    return out
+
+
+def quantile_makespan(problem: HFLProblem, assoc: np.ndarray, a, b, *,
+                      rounds: int, max_staleness: int, model, key=0,
+                      num_trials: int = 32, q: float = 0.95,
+                      device=None) -> float:
+    """q-quantile of the async makespan under ``model`` — the robust
+    objective ``assoc.refined(objective="quantile_makespan")`` descends.
+    Keyed sampling makes repeated calls comparable (common random
+    numbers across candidate associations)."""
+    d = makespan_distribution(problem, assoc, a, b, rounds=rounds,
+                              max_staleness=max_staleness, model=model,
+                              key=key, num_trials=num_trials, device=device)
+    return float(np.quantile(d["async_makespans"], q))

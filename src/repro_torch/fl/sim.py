@@ -42,6 +42,14 @@ each cloud update merges the arrived edges with weights decayed by
 ``staleness_decay ** version_lag`` (``flat_staleness_merge``).  At
 ``max_staleness=0`` the trajectory is the synchronous one to float
 tolerance.
+
+Stochastic clock (``delay_model=``, beyond the paper): a
+``repro_torch.core.stochastic.DelayModel`` replaces the constant delays
+with keyed per-cycle draws, one batched draw per run under
+``Key(delay_seed)`` on the simulator's device: sync rounds cost that
+round's ``max_m`` cycle draw, async departures each consume a fresh row
+of the pre-sampled cycle matrix.  ``DeterministicDelays`` (and the
+default ``None``) keep the constant clock exactly.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from torch.func import vmap
 
 from repro_torch.core import delay
 from repro_torch.core.schedule import HFLSchedule
+from repro_torch.core.stochastic import Key
 from repro_torch.device import resolve_device
 from repro_torch.fl import aggregate, clients
 from repro_torch.fl.flatten import FlatLayout, ShardedFlatLayout
@@ -82,7 +91,9 @@ class HFLSimulator:
     loss_fn(params, batch) -> (loss, metrics) — one UE's full-batch loss.
     ``device=None`` runs on the CUDA card and raises if there is none
     (under a mesh: on the mesh's device).  ``mesh=`` (sync mode): this
-    rank's ``AggMesh``; see the module docstring.
+    rank's ``AggMesh``; see the module docstring.  ``delay_model=`` (with
+    ``delay_seed``) makes the clock stochastic in both modes; every rank
+    of a mesh draws the same rows.
     """
 
     def __init__(self, schedule: HFLSchedule, loss_fn: Callable,
@@ -92,7 +103,8 @@ class HFLSimulator:
                  seed: int = 0, mode: str = "sync",
                  max_staleness: Optional[int] = 0,
                  staleness_decay: float = 0.9, mesh=None, delay_model=None,
-                 fault_model=None, sampler=None, device=None):
+                 delay_seed: int = 0, fault_model=None, sampler=None,
+                 device=None):
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
         if max_staleness is None:
@@ -108,8 +120,9 @@ class HFLSimulator:
         if mesh is not None and mode == "async":
             raise _not_ported("mode='async' with mesh= (the staleness "
                               "merge on a mesh)", "item 13b")
-        if delay_model is not None:
-            raise _not_ported("delay_model=", "item 8")
+        if delay_model is not None and schedule.problem is None:
+            raise ValueError("delay_model= needs schedule.problem to sample "
+                             "the delay ingredients (eqs. 1-5, 8)")
         if fault_model is not None:
             raise _not_ported("fault_model=", "item 9")
         if sampler is not None:
@@ -123,6 +136,8 @@ class HFLSimulator:
         self.mode = mode
         self.max_staleness = int(max_staleness)
         self.staleness_decay = float(staleness_decay)
+        self.delay_model = delay_model
+        self.delay_seed = int(delay_seed)
         n = schedule.num_ues
         if len(ue_data) != n:
             raise ValueError(f"{len(ue_data)} UE datasets for {n} UEs")
@@ -206,6 +221,10 @@ class HFLSimulator:
         dist.all_gather(parts, t.contiguous(), group=self.mesh.model_group)
         return torch.cat(parts, -1)
 
+    def _delay_key(self) -> Key:
+        """The run's delay key: ``delay_seed`` on this simulator's device."""
+        return Key(self.delay_seed, device=self.device)
+
     def _single_device(self, what: str) -> None:
         if self.mesh is not None:
             raise _not_ported(f"{what} with mesh=", "item 13b")
@@ -286,7 +305,15 @@ class HFLSimulator:
             return self._run_async(test_batch, rounds, eval_every, verbose)
         sched = self.schedule
         rounds = rounds or sched.rounds
-        round_times = np.full(rounds, sched.cloud_round_time)  # eq. (34)
+        if self.delay_model is not None:
+            # One batched draw for the whole run: round r costs the max
+            # over edges of that round's cycle draw (stochastic eq. 34).
+            draws = self.delay_model.cycle_times(
+                self._delay_key(), sched.problem, sched.assoc, sched.a,
+                sched.b, rounds)
+            round_times = np.asarray(draws).max(axis=1)
+        else:
+            round_times = np.full(rounds, sched.cloud_round_time)  # eq. (34)
         test = {k: torch.as_tensor(v, device=self.device)
                 for k, v in test_batch.items()}
         times, accs, tlosses, trlosses = [], [], [], []
@@ -409,7 +436,8 @@ class HFLSimulator:
         rounds = rounds or sched.rounds
         stats = delay.async_completion(
             sched.problem, sched.assoc, sched.a, sched.b, rounds=rounds,
-            max_staleness=self.max_staleness)
+            max_staleness=self.max_staleness, delay_model=self.delay_model,
+            key=self._delay_key())
         tl = stats["timeline"]
         active = np.asarray(stats["active_edges"])
         gids = self.group_ids.cpu().numpy()

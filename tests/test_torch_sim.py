@@ -126,10 +126,10 @@ def _small_sim_args():
 
 
 @pytest.mark.parametrize("kw", [
-    {"mode": "async", "delay_model": object()},
+    {"mode": "async", "fault_model": object()},
     {"solver": "dane", "sampler": object()},
     {"mode": "async", "mesh": object()},
-    {"delay_model": object()}, {"fault_model": object()},
+    {"mode": "async", "sampler": object()}, {"fault_model": object()},
     {"sampler": object()}])
 def test_unported_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
