@@ -101,7 +101,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the timeline of ``events.simulate_async`` on the card-drawn matrix;
    then its makespan against the sync barrier on the same draws and
    ``makespan_distribution``'s p50/p95 over 64 trials drawn on the card.
-11. Kernel records as JSON (``launches``: each path's count, read around
+11. Faults and sampling at full width, with cuDNN's deterministic
+   algorithms: ``FaultModel()`` and a rate-1 sampler give the plain run's
+   clock and params bit for bit; ``faulty_cycle_stats`` of churn, uplink
+   loss and edge outages over ``ue_churn``'s delays drawn on the card
+   equals the CPU's draw (masks and windows exactly, cycle times within
+   1e-6); 4 sync rounds under wait-for-all and under deadline+failover
+   (clock = the card-drawn stats' round times, deadline <= wait-for-all,
+   ``b*`` ``segment_aggregate`` and one ``cloud_aggregate`` a round with
+   any survivor); the dead cohort on the card (K1 leaves a killed edge's
+   rows exactly 0; K1 and K2 under fault weights against their plain
+   versions); sampled sync at rate 0.1 (clock = the cohort-masked
+   deterministic cycles, cohort sizes = ``expected_cohort``); async at
+   ``max_staleness=2`` under deadline+failover (timeline =
+   ``faulty_async_completion`` on the card, ``b*`` launches a wave); then
+   ``fault_makespan_distribution`` over 8 trials, both policies.
+12. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phase 9, over the ranks), then the result line.
 
@@ -217,6 +232,15 @@ STOCH_SEED = 0
 STOCH_TRIALS = 64
 CLOCK_RTOL = 1e-6            # card-drawn against CPU-drawn clock: float32
                              # exp/log2 may differ by an ulp between them
+# Phase 11: faults and sampling on phase 3's problem and model.  The
+# fault model composes the processes of the ue_churn, lossy_uplink and
+# edge_outage scenarios; the sampler and rate are
+# benchmarks/bench_scale.py's.
+FAULT_SCENARIO = "ue_churn"          # its delay model
+FAULT_SEED = 0
+FAULT_ROUNDS = 4
+FAULT_TRIALS = 8
+SAMPLER, SAMPLE_RATE = "weight", 0.1
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -2054,6 +2078,260 @@ def _phase_stochastic(sch, ue_data, test, main_clock) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11
+# ---------------------------------------------------------------------------
+
+
+def phase_faults(sch, ue_data, test) -> dict:
+    """Phase 11; returns each kernel's launches over its fault and sampled
+    runs, and K1's and K2's largest error under fault weights.  cuDNN's
+    deterministic algorithms make the bit-for-bit null routing a check of
+    the routing, not of cuDNN."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_faults(sch, ue_data, test)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _phase_faults(sch, ue_data, test) -> dict:
+    # imported here, so that the script still imports in an older tree
+    from repro_torch.core import DeterministicDelays, scenario
+    from repro_torch.core import faults as F
+    from repro_torch.core.delay import (fault_makespan_distribution,
+                                        faulty_async_completion)
+    from repro_torch.core.stochastic import Key
+    from repro_torch.fl.aggregate import flat_edge_aggregate
+    from repro_torch.fl.sampling import expected_cohort, make_sampler
+    prob, assoc, a, b = sch.problem, sch.assoc, sch.a, sch.b
+    M = sch.num_edges
+    fm = F.FaultModel(dropout=F.MarkovChurn(p_off=0.15, p_on=0.45),
+                      loss=F.UplinkLoss(rate=0.25, backoff=0.05),
+                      outage=F.EdgeOutage(rate=0.05, repair_cycles=6.0))
+    model = scenario(FAULT_SCENARIO).model
+    policies = {"wait_for_all": F.wait_for_all_policy(),
+                "deadline_failover": F.deadline_failover_policy()}
+    print(f"fault model {fm}; delays {FAULT_SCENARIO}; fault_seed="
+          f"{FAULT_SEED}")
+
+    plain_sim = make_sim(sch, ue_data, "cuda")
+    plain = plain_sim.run(test, rounds=ROUNDS)
+    null = make_sim(sch, ue_data, "cuda", fault_model=F.FaultModel(),
+                    sampler=make_sampler(SAMPLER, 1.0)).run(test,
+                                                            rounds=ROUNDS)
+    check(np.array_equal(null.times, plain.times)
+          and all(torch.equal(x, y) for x, y in
+                  zip(tree_leaves(null.final_params),
+                      tree_leaves(plain.final_params))),
+          "FaultModel() and a rate-1 sampler: clock or params differ from "
+          "the plain run's")
+    print("FaultModel() with a rate-1 sampler: the plain run's clock and "
+          "params bit for bit")
+
+    gids = sch.assoc.argmax(1)
+    stats = {}
+    for name, pol in policies.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = F.faulty_cycle_stats(fm, pol, Key(FAULT_SEED, device="cuda"),
+                                    prob, assoc, a, b, FAULT_ROUNDS,
+                                    delay_model=model)
+        draw_ms = (time.perf_counter() - t0) * 1e3
+        cpu = F.faulty_cycle_stats(fm, pol, Key(FAULT_SEED, device="cpu"),
+                                   prob, assoc, a, b, FAULT_ROUNDS,
+                                   delay_model=model)
+        check(np.array_equal(card.survivors, cpu.survivors)
+              and np.array_equal(card.down, cpu.down)
+              and card.windows == cpu.windows,
+              f"{name}: card-drawn masks or windows != the CPU's")
+        rel = float(np.abs(card.cycle_times - cpu.cycle_times).max()
+                    / np.abs(cpu.cycle_times).max())
+        check(rel <= CLOCK_RTOL, f"{name}: card cycle times vs CPU {rel:.3e}"
+              f" > {CLOCK_RTOL}")
+        print(f"  faulty_cycle_stats, {name}: {FAULT_ROUNDS} cycles x {b} "
+              f"edge rounds x {sch.num_ues} UEs drawn on the card in "
+              f"{draw_ms:.3f} ms (host clock, synchronised); masks, down and "
+              f"windows equal the CPU's, cycle times within {rel:.3e}")
+        stats[name] = card
+
+    launches = {name: 0 for name in KERNELS}
+    finals = {}
+    for name, pol in policies.items():
+        sim = make_sim(sch, ue_data, "cuda", delay_model=model,
+                       fault_model=fm, fault_policy=pol,
+                       fault_seed=FAULT_SEED)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = sim.run(test, rounds=FAULT_ROUNDS, verbose=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = counts()
+        fc = stats[name]
+        kept = fc.survivors & ~fc.down[:, gids]
+        k = int(kept.any(axis=1).sum())
+        print(f"{name} sync: {FAULT_ROUNDS} rounds in {run_s:.3f} s "
+              f"(first-call warm-up included); survivors a round "
+              f"{fc.survivors.sum(axis=1).tolist()}, kept (outside down "
+              f"edges) {kept.sum(axis=1).tolist()} of {sch.num_ues}; "
+              f"windows {fc.windows}; launches {got}")
+        # wait-for-all adds the outage stalls, the deadline policy skips
+        # the edges that are down
+        round_times = (fc.cycle_times + fc.stall if name == "wait_for_all"
+                       else np.where(fc.down, 0.0, fc.cycle_times))
+        check(np.array_equal(res.times,
+                             np.cumsum(round_times.max(axis=1))),
+              f"{name}: clock != the card-drawn stats' round times")
+        check(got == expect(segment_aggregate=b * k, cloud_aggregate=k),
+              f"{name}: launch counts {got} != b*k={b * k}, k={k}")
+        check(bool(np.isfinite(res.test_loss).all()
+                   and np.isfinite(res.train_loss).all()),
+              f"{name}: finite losses")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in tree_leaves(res.final_params)),
+              f"{name}: finite params")
+        finals[name] = float(res.times[-1])
+        for kname in KERNELS:
+            launches[kname] += got[kname]
+        if name == "deadline_failover":
+            fault_sim = sim
+    print(f"  final clock: deadline_failover {finals['deadline_failover']!r}"
+          f" s, wait_for_all {finals['wait_for_all']!r} s")
+    check(finals["deadline_failover"] <= finals["wait_for_all"],
+          "the deadline policy's clock exceeds wait-for-all's")
+
+    # The dead cohort on the card: one edge killed, a few more UEs lost.
+    ok = np.ones(sch.num_ues, bool)
+    ok[gids == 2] = False
+    ok[np.flatnonzero(gids == 0)[:3]] = False
+    w_edge, w_cloud = fault_sim._fault_round_weights(ok)
+    gen = torch.Generator(device="cuda").manual_seed(FAULT_SEED)
+    x = torch.randn((sch.num_ues, LENET_PARAMS), generator=gen,
+                    device="cuda")
+    g = fault_sim.group_ids
+    dead = torch.as_tensor(gids == 2, device="cuda")
+    out = flat_edge_aggregate(x, w_edge, g, M)
+    check(bool((out[dead] == 0).all()) and bool(torch.isfinite(out).all()),
+          "dead cohort: the killed edge's rows are not exactly 0")
+    errs = {}
+    for kname, (kout, ref) in {
+            "segment_aggregate": (ha.segment_aggregate(x, w_edge, g, M),
+                                  ha.segment_aggregate_plain(x, w_edge, g,
+                                                             M)),
+            "cloud_aggregate": (ha.cloud_aggregate(x, w_cloud),
+                                ha.cloud_aggregate_plain(x, w_cloud))}.items():
+        err, scale = _max_err(kout, ref), float(ref.abs().max())
+        check(bool(torch.isfinite(kout).all()) and err <= KERNEL_RTOL * scale,
+              f"{kname} under fault weights: max|err| {err:.3e} > "
+              f"{KERNEL_RTOL} x {scale:.3e}")
+        errs[kname] = err
+        print(f"  {kname} under fault weights ({int(ok.sum())} of "
+              f"{sch.num_ues} rows kept, edge 2 dead): max|err| {err:.3e} "
+              f"(scale {scale:.3e})")
+    print("  the dead edge's rows are exactly 0 after flat_edge_aggregate")
+    del x, out
+
+    sampler = make_sampler(SAMPLER, participation_rate=SAMPLE_RATE)
+    ssim = make_sim(sch, ue_data, "cuda", sampler=sampler,
+                    sample_seed=FAULT_SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ssim.run(test, rounds=FAULT_ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = counts()
+    w_np, g_np = ssim.weights.cpu().numpy(), ssim.group_ids.cpu().numpy()
+    part = sampler.sample_rounds(Key(FAULT_SEED, device="cuda"), w_np, g_np,
+                                 M, FAULT_ROUNDS)
+    rows = DeterministicDelays().cycle_times(None, prob, assoc, a, b,
+                                             FAULT_ROUNDS,
+                                             participation=part)
+    cohort = expected_cohort(w_np, g_np, M, SAMPLE_RATE)
+    print(f"sampled sync ({SAMPLER}, rate {SAMPLE_RATE}): {FAULT_ROUNDS} "
+          f"rounds in {run_s:.3f} s; cohorts {part.sum(axis=1).tolist()} "
+          f"(expected_cohort {cohort}); clock {res.times.tolist()} s; "
+          f"launches {got}")
+    check(np.array_equal(res.times, np.cumsum(rows.max(axis=1))),
+          "sampled clock != the cohort-masked deterministic cycles")
+    check(bool((part.sum(axis=1) == cohort).all()),
+          "cohort sizes != expected_cohort")
+    check(got == expect(segment_aggregate=b * FAULT_ROUNDS,
+                        cloud_aggregate=FAULT_ROUNDS),
+          f"sampled: launch counts {got}")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tree_leaves(res.final_params)), "sampled: finite")
+    for kname in KERNELS:
+        launches[kname] += got[kname]
+
+    dlf = policies["deadline_failover"]
+    asim = make_sim(sch, ue_data, "cuda", mode="async",
+                    max_staleness=ASYNC_STALENESS, delay_model=model,
+                    fault_model=fm, fault_policy=dlf, fault_seed=FAULT_SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ares = asim.run(test, rounds=ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = counts()
+    tl = ares.timeline
+    waves = departure_waves(tl)
+    ref = faulty_async_completion(prob, assoc, a, b, rounds=ROUNDS,
+                                  max_staleness=ASYNC_STALENESS,
+                                  fault_model=fm, policy=dlf,
+                                  delay_model=model,
+                                  key=Key(FAULT_SEED, device="cuda"))
+    print(f"faulty async (deadline_failover, max_staleness="
+          f"{ASYNC_STALENESS}): {len(tl.updates)} cloud updates, {waves} "
+          f"departure waves, {len(tl.failures)} edge failures in "
+          f"{run_s:.3f} s; makespan {float(tl.makespan)!r} s simulated "
+          f"against the sync barrier {ref['sync_makespan']!r} s; launches "
+          f"{got}")
+    check(tl.trace == ref["timeline"].trace,
+          "faulty async timeline != faulty_async_completion on the card")
+    check(got == expect(segment_aggregate=b * waves),
+          f"faulty async: launch counts {got} != b*waves={b * waves}")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tree_leaves(ares.final_params)),
+          "faulty async: finite params")
+    for kname in KERNELS:
+        launches[kname] += got[kname]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = fault_makespan_distribution(prob, assoc, a, b, rounds=FAULT_ROUNDS,
+                                    max_staleness=ASYNC_STALENESS,
+                                    fault_model=fm, policies=policies,
+                                    delay_model=model, key=FAULT_SEED,
+                                    num_trials=FAULT_TRIALS, device="cuda")
+    dist_s = time.perf_counter() - t0
+    print(f"  fault_makespan_distribution, {FAULT_TRIALS} trials drawn on "
+          f"the card in {dist_s:.3f} s: " + "; ".join(
+              f"{n} p50 {d[n + '_p50']!r} p95 {d[n + '_p95']!r} s, delivered "
+              f"{d[n + '_delivered_frac']:.4f}" for n in policies))
+    check(all(bool(np.isfinite(d["makespans"][n]).all()
+                   and (d["makespans"][n] > 0).all()) for n in policies),
+          "fault_makespan_distribution: finite, positive makespans")
+
+    # Warm rounds in turns, plain and faulty, both under this phase's
+    # cuDNN algorithms: the fault draw and weights are the difference.
+    warm = {"plain": [], "deadline_failover": []}
+    for name, run_sim in (("plain", plain_sim),
+                          ("deadline_failover", fault_sim),
+                          ("deadline_failover", fault_sim),
+                          ("plain", plain_sim)):
+        t0 = time.perf_counter()
+        run_sim.run(test, rounds=1)
+        torch.cuda.synchronize()
+        warm[name].append(time.perf_counter() - t0)
+    print("one more sync round, warm, in turns: " + "; ".join(
+        f"{name} {', '.join(f'{t:.3f}' for t in ts)} s"
+        for name, ts in warm.items()))
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
 
 
 def time_aggregation() -> int:
@@ -2229,6 +2507,14 @@ def main(argv=None) -> int:
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     for name in ("segment_aggregate", "cloud_aggregate"):
         launches[name] += stochastic[name]
+
+    print("== phase 11: faults and sampling at full width")
+    t0 = time.perf_counter()
+    faulty, fault_errs = phase_faults(sch, ue_data, test)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    for name in ("segment_aggregate", "cloud_aggregate"):
+        launches[name] += faulty[name]
+        errs[name] = max(errs[name], fault_errs[name])
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + ", ".join(KERNELS))

@@ -10,13 +10,20 @@
   SSP staleness gating (degenerates to the eq. 34 barrier at bound 0).
 * ``stochastic`` — BEYOND-PAPER per-cycle delay draws: ``DelayModel``
   samplers on a keyed torch ``Key`` and the named ``Scenario`` registry.
-* ``faults``   — BEYOND-PAPER fault processes (dropout, churn, uplink
-  loss, edge outages) on the same keys.
+* ``faults``   — BEYOND-PAPER fault injection and handling: the processes
+  (dropout, churn, uplink loss, edge outages) on the same keys, the
+  ``FaultPolicy`` (wait-for-all or deadline + failover) and
+  ``faulty_cycle_stats``, the one draw a faulty run prices its clock with;
+  ``delay.faulty_async_completion`` and ``assoc.failover`` consume it.
 
 ``stochastic`` and ``faults`` draw with torch; the other modules are
 numpy/scipy only, and ``DeterministicDelays`` stays in float64 numpy.
 """
 from repro_torch.core.events import AsyncTimeline, simulate_async
+from repro_torch.core.faults import (FaultModel, FaultPolicy,
+                                     deadline_failover_policy,
+                                     faulty_cycle_stats,
+                                     wait_for_all_policy)
 from repro_torch.core.problem import HFLProblem
 from repro_torch.core.schedule import HFLSchedule, plan
 from repro_torch.core.stochastic import (SCENARIOS, DelayModel,
@@ -24,5 +31,7 @@ from repro_torch.core.stochastic import (SCENARIOS, DelayModel,
                                          scenario)
 
 __all__ = ["AsyncTimeline", "DelayModel", "DeterministicDelays",
-           "HFLProblem", "HFLSchedule", "SCENARIOS", "Scenario", "plan",
-           "scenario", "simulate_async"]
+           "FaultModel", "FaultPolicy", "HFLProblem", "HFLSchedule",
+           "SCENARIOS", "Scenario", "deadline_failover_policy",
+           "faulty_cycle_stats", "plan", "scenario", "simulate_async",
+           "wait_for_all_policy"]

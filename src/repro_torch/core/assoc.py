@@ -11,10 +11,10 @@ beyond-paper local searches ``refined`` and ``cluster_refined``):
 * ``random_assoc`` — baseline from §V-C: uniform random under capacity.
 
 Copied from the JAX package's ``repro/core/assoc.py`` (numpy only): the
-strategies ``plan`` can name and the enumeration oracle ``exhaustive``.
-``refined(objective="joint")`` raises until ``core/jointopt.py`` is
-ported (ROADMAP Queue 1 item 10); the fault path's
-``failover``/``orphans_of`` wait for a later slice.
+strategies ``plan`` can name, the enumeration oracle ``exhaustive`` and
+the fault path's incremental re-association ``failover`` (with
+``orphans_of``).  ``refined(objective="joint")`` raises until
+``core/jointopt.py`` is ported (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -192,6 +192,95 @@ def _latency_terms(problem: HFLProblem, a: float):
     t_unit = problem.model_bits / (problem.bandwidth_total *
                                    np.log2(1.0 + problem.snr()))  # (N, M)
     return t_fix, t_unit
+
+
+def orphans_of(assoc: np.ndarray, dead_edges) -> np.ndarray:
+    """UE indices orphaned when ``dead_edges`` go down: assigned rows
+    whose home edge is dead.  The same membership rule ``failover`` uses
+    to pick what it re-homes — exposed so callers (the always-on
+    service's segment-boundary failover) can report/trace the orphan set
+    without re-deriving it."""
+    A = np.asarray(assoc)
+    dead = np.atleast_1d(np.asarray(dead_edges, dtype=int)).ravel()
+    assigned = A.sum(1) > 0
+    return np.flatnonzero(assigned & np.isin(A.argmax(1), dead))
+
+
+def failover(problem: HFLProblem, assoc: np.ndarray, dead_edges,
+             a: float = 10.0) -> np.ndarray:
+    """BEYOND-PAPER: incremental re-association after edge failures.
+
+    When edge servers in ``dead_edges`` go down (``repro_torch.core.faults``
+    outage windows), their member UEs are ORPHANED.  This re-homes each
+    orphan onto a surviving edge, reusing the refined-search delta
+    machinery (``_latency_terms``): with the eq. 38 latency split
+    ``t_fix[n] + c * t_unit[n, m]``, placing one orphan only changes the
+    receiving edge's member count, so every candidate placement is an
+    O(members) delta re-score instead of a full O(N*M) ``t_com``
+    recompute.  Orphans are placed worst-first (highest best-case
+    latency), each onto the edge minimizing the resulting SYSTEM latency
+    — the same bottleneck criterion ``refined`` descends.
+
+    Capacity: the bandwidth cap (39d) is respected when feasible; when
+    the surviving edges cannot hold everyone under it, the cap relaxes
+    to ``ceil(N / M_alive)`` (UEs must land somewhere — degraded
+    service beats no service).  Rows that were all-zero stay all-zero;
+    dead edges end with zero members.
+    """
+    A = np.asarray(assoc).copy()
+    N, M = A.shape
+    dead = sorted({int(m) for m in np.atleast_1d(
+        np.asarray(dead_edges, dtype=int)).ravel()})
+    if any(m < 0 or m >= M for m in dead):
+        raise ValueError(f"dead_edges {dead} out of range for M={M}")
+    alive = [m for m in range(M) if m not in dead]
+    if not alive:
+        raise ValueError("no surviving edges to fail over to")
+    assigned = A.sum(1) > 0
+    orphans = np.flatnonzero(assigned & np.isin(A.argmax(1), dead))
+    if orphans.size == 0:
+        return A
+    n_assigned = int(assigned.sum())
+    cap = max(capacity_of(problem),
+              int(np.ceil(n_assigned / len(alive))))
+    t_fix, t_unit = _latency_terms(problem, a)
+    edge_of = np.where(assigned, A.argmax(1), -1)
+    members = {m: np.flatnonzero(edge_of == m).tolist() for m in alive}
+    counts = {m: len(members[m]) for m in alive}
+    el = {m: (float(np.max(t_fix[members[m]] +
+                           counts[m] * t_unit[members[m], m]))
+              if members[m] else 0.0) for m in alive}
+    # Worst-first: the orphan whose BEST surviving placement is costliest
+    # gets first pick (classic bottleneck ordering).
+    best_case = np.array([t_fix[n] + np.min(t_unit[n, alive])
+                          for n in orphans])
+    for n in orphans[np.argsort(-best_case)]:
+        best_m, best_val = None, np.inf
+        for m in alive:
+            if counts[m] >= cap:
+                continue
+            c_new = counts[m] + 1
+            mem = members[m]
+            el_m = t_fix[n] + c_new * t_unit[n, m]
+            if mem:
+                el_m = max(el_m, float(np.max(t_fix[mem] +
+                                              c_new * t_unit[mem, m])))
+            v = max(el_m, max((el[mm] for mm in alive if mm != m),
+                              default=0.0))
+            if v < best_val - 1e-12:
+                best_val, best_m = v, m
+        if best_m is None:          # every survivor at cap: force least-bad
+            best_m = min(alive, key=lambda m: counts[m])
+        A[n] = 0
+        A[n, best_m] = 1
+        members[best_m].append(int(n))
+        counts[best_m] += 1
+        c = counts[best_m]
+        mem = members[best_m]
+        el[best_m] = float(np.max(t_fix[mem] + c * t_unit[mem, best_m]))
+    assert (A.sum(1)[assigned] == 1).all()
+    assert (A[:, dead].sum() == 0).all() if dead else True
+    return A
 
 
 def refined(problem: HFLProblem, a: float = 10.0,

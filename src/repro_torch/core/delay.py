@@ -27,9 +27,13 @@ sync-vs-async makespan comparison.  Under draws the "sync makespan" is
 ``stochastic.Key`` or an int seed) and ``device=``, used only for an int
 seed (``None``: the card).
 
-Copied from the JAX package's ``repro/core/delay.py``.  The fault-injected
-makespans (``faulty_async_completion``, ``fault_makespan_distribution``)
-wait for the port of the fault policy (ROADMAP Queue 1 item 9).
+Fault extension (``repro_torch.core.faults``):
+``faulty_async_completion`` runs the event engine over one
+``faulty_cycle_stats`` draw with the policy's deadlines, retries, outage
+windows and failover, and ``fault_makespan_distribution`` compares
+policies over trials under common random numbers.
+
+Copied from the JAX package's ``repro/core/delay.py``.
 """
 from __future__ import annotations
 
@@ -317,3 +321,136 @@ def quantile_makespan(problem: HFLProblem, assoc: np.ndarray, a, b, *,
                               max_staleness=max_staleness, model=model,
                               key=key, num_trials=num_trials, device=device)
     return float(np.quantile(d["async_makespans"], q))
+
+
+# ---------------------------------------------------------------------------
+# BEYOND-PAPER: fault-injected completion times (repro_torch.core.faults).
+# ---------------------------------------------------------------------------
+
+
+def faulty_async_completion(problem: HFLProblem, assoc: np.ndarray, a, b, *,
+                            rounds: int, max_staleness: int, fault_model,
+                            policy=None, delay_model=None, key=0,
+                            device=None) -> dict:
+    """Deadline/retry/failover-aware makespan under injected faults.
+
+    Samples one ``faults.faulty_cycle_stats`` batch under ``key`` and runs
+    the event engine over the policy-adjusted cycle times with the outage
+    windows threaded through (in-flight cycles voided, repairs emitted as
+    trace events).  Under the deadline+failover policy, down edges are
+    excluded from the staleness floor and their orphans re-associated by
+    ``assoc.failover``: the cycle rows an outage spans are re-scored under
+    the failover association with the SAME key object, so the underlying
+    draws are common and only the uplink targets change.
+
+    Returns the ``async_completion`` dict plus fault accounting:
+    ``cycle_stats``, ``delivered_frac`` (mean delivered weight fraction per
+    edge over the consumed cycles), ``survivor_frac``, ``num_failures`` /
+    ``num_repairs`` and the ``windows``.
+    """
+    from repro_torch.core import assoc as assoc_lib
+    from repro_torch.core import faults as faults_lib
+    from repro_torch.core import stochastic
+    if policy is None:
+        policy = faults_lib.FaultPolicy()
+    key = stochastic.ensure_key(key, device)
+    A = np.asarray(assoc)
+    active = np.flatnonzero(A.sum(0) > 0)
+    m_act = len(active)
+    rounds, max_staleness = int(rounds), int(max_staleness)
+    # Failover lets survivors run extra cycles to fill the quota while an
+    # edge is down, so pre-sample generously beyond rounds+max_staleness.
+    n_cycles = (int(np.ceil(rounds * m_act / max(m_act - 1, 1))) +
+                max_staleness + 4)
+    fc = faults_lib.faulty_cycle_stats(fault_model, policy, key, problem,
+                                       A, a, b, n_cycles,
+                                       delay_model=delay_model)
+    cycle_times = fc.cycle_times.copy()
+    windows = fc.windows
+    if policy.failover and windows:
+        det_cycle = edge_cycle_time(problem, A, a, b)
+        for m in sorted({w[0] for w in windows}):
+            A_m = assoc_lib.failover(problem, A, [m], a=a)
+            fc_m = faults_lib.faulty_cycle_stats(
+                fault_model, policy, key, problem, A_m, a, b, n_cycles,
+                delay_model=delay_model)
+            step = max(float(det_cycle[m]), 1e-12)
+            for mm, f, r in windows:
+                if mm != m:
+                    continue
+                c0 = min(int(f // step), n_cycles - 1)
+                c1 = min(int(np.ceil(r / step)) + 1, n_cycles)
+                others = [k for k in range(problem.num_edges) if k != m]
+                cycle_times[c0:c1, others] = fc_m.cycle_times[c0:c1, others]
+    if policy.name == faults_lib.WAIT_FOR_ALL:
+        # The naive baseline IS the synchronous barrier: the engine runs at
+        # max_staleness=0 whatever the caller's bound, the repair time
+        # (plus the voided in-flight work) is charged to the stalled cycle
+        # and the engine sees no windows (it would void and re-run, i.e.
+        # fail over by accident).
+        cycle_times = cycle_times + fc.stall
+        eng_windows, eng_failover, eng_staleness = [], False, 0
+    else:
+        eng_windows = [(int(np.searchsorted(active, m)), f, r)
+                       for m, f, r in windows if m in active]
+        eng_staleness = max_staleness
+        eng_failover = policy.failover and max_staleness >= 1
+    tl = events.simulate_async(cycle_times[:, active], rounds=rounds,
+                               max_staleness=eng_staleness,
+                               outages=eng_windows, failover=eng_failover)
+    sync = float(cycle_times[:rounds, active].max(axis=1).sum())
+    busy = np.zeros(problem.num_edges)
+    busy[active] = tl.edge_busy_frac()
+    arrivals = [(u.t, int(active[e]), int(c), int(s))
+                for u in tl.updates for e, c, s in u.merges]
+    consumed = max(c for _, _, c, _ in arrivals) if arrivals else rounds
+    return {
+        "timeline": tl,
+        "active_edges": active,
+        "makespan": tl.makespan,
+        "sync_makespan": sync,
+        "speedup": sync / tl.makespan if tl.makespan > 0 else 1.0,
+        "cloud_idle_frac": tl.cloud_idle_frac(),
+        "edge_busy_frac": busy,
+        "arrivals": arrivals,
+        "cycle_stats": fc,
+        "delivered_frac": fc.delivered_frac[:consumed].mean(axis=0),
+        "survivor_frac": float(fc.survivors[:consumed].mean()),
+        "num_failures": len(tl.failures),
+        "num_repairs": len(tl.repairs),
+        "windows": windows,
+    }
+
+
+def fault_makespan_distribution(problem: HFLProblem, assoc: np.ndarray, a,
+                                b, *, rounds: int, max_staleness: int,
+                                fault_model, policies, delay_model=None,
+                                key=0, num_trials: int = 32,
+                                device=None) -> dict:
+    """Monte-Carlo makespan/delivery comparison across fault POLICIES.
+
+    Trial ``i`` runs every policy on ``key.fold_in(i)`` (common random
+    numbers, so per-trial gaps isolate the handling policy).  ``policies``
+    is a ``{name: FaultPolicy}`` mapping; returns per-policy makespan
+    arrays, p50/p95 and mean delivered fractions.
+    """
+    from repro_torch.core import stochastic
+    base = stochastic.ensure_key(key, device)
+    names = list(policies)
+    ms = {n: np.empty(int(num_trials)) for n in names}
+    df = {n: np.empty(int(num_trials)) for n in names}
+    for i in range(int(num_trials)):
+        k = base.fold_in(i)
+        for n in names:
+            r = faulty_async_completion(
+                problem, assoc, a, b, rounds=rounds,
+                max_staleness=max_staleness, fault_model=fault_model,
+                policy=policies[n], delay_model=delay_model, key=k)
+            ms[n][i] = r["makespan"]
+            df[n][i] = float(np.mean(r["delivered_frac"]))
+    out: dict = {"makespans": ms}
+    for n in names:
+        out[f"{n}_p50"] = float(np.quantile(ms[n], 0.5))
+        out[f"{n}_p95"] = float(np.quantile(ms[n], 0.95))
+        out[f"{n}_delivered_frac"] = float(df[n].mean())
+    return out

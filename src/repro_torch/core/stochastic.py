@@ -24,7 +24,7 @@ This module makes the per-cycle draws first-class:
 Keys.  ``Key`` takes the place of a ``jax.random`` key and follows the
 same tree: every function splits or folds where the reference does, even
 where a branch leaves a key unused, so a key object that implements the
-same five methods over ``jax.random`` reproduces the reference's draws
+same six methods over ``jax.random`` reproduces the reference's draws
 through this code.  A key's variates come from a CPU ``torch.Generator``
 seeded from ``np.random.SeedSequence([seed, *path])`` and then move to
 the key's device, where all the arithmetic runs: the same seed gives the
@@ -90,6 +90,12 @@ class Key:
         u = torch.rand(tuple(shape), generator=self._generator(),
                        dtype=torch.float32)
         return (u * (maxval - minval) + minval).to(self.device)
+
+    def gumbel(self, shape) -> torch.Tensor:
+        """Standard Gumbel variates by ``jax.random.gumbel``'s definition,
+        ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+        u = self.uniform(shape, minval=float(torch.finfo(torch.float32).tiny))
+        return -torch.log(-torch.log(u))
 
 
 def ensure_key(key, device=None):

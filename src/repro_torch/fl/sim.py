@@ -50,6 +50,19 @@ with keyed per-cycle draws, one batched draw per run under
 round's ``max_m`` cycle draw, async departures each consume a fresh row
 of the pre-sampled cycle matrix.  ``DeterministicDelays`` (and the
 default ``None``) keep the constant clock exactly.
+
+Faults and sampling (``fault_model=``, ``sampler=``, beyond the paper; one
+device): a ``repro_torch.core.faults.FaultModel`` under a ``FaultPolicy``
+prices the clock with one ``faulty_cycle_stats`` draw under
+``Key(fault_seed)``, and a ``repro_torch.fl.sampling.ClientSampler`` draws
+every round's cohort under ``Key(sample_seed)``.  Rounds (sync) and
+departure waves (async) aggregate only the survivors or the cohort, with
+runtime edge weights renormalised to keep each edge's mass
+(``_fault_round_weights``) and cloud weights that zero every edge with no
+delivered mass; a sync round with no survivor at all skips the cloud
+event.  A null fault model and a sampler at ``participation_rate=1`` are
+routed to ``None`` at construction, so those runs take the legacy code
+byte for byte.
 """
 from __future__ import annotations
 
@@ -61,9 +74,9 @@ import torch
 import torch.distributed as dist
 from torch.func import vmap
 
-from repro_torch.core import delay
+from repro_torch.core import delay, faults
 from repro_torch.core.schedule import HFLSchedule
-from repro_torch.core.stochastic import Key
+from repro_torch.core.stochastic import DeterministicDelays, Key
 from repro_torch.device import resolve_device
 from repro_torch.fl import aggregate, clients
 from repro_torch.fl.flatten import FlatLayout, ShardedFlatLayout
@@ -80,6 +93,16 @@ class SimResult:
     timeline: object = None    # core.events.AsyncTimeline (async mode only)
 
 
+def _combine_masks(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """AND two (C, N) bool mask matrices with mismatched row counts by
+    clamping each to its last row (the clamp the async replay applies per
+    event), so faults x sampling compose into ONE mask."""
+    rows = max(a.shape[0], b.shape[0])
+    ai = np.minimum(np.arange(rows), a.shape[0] - 1)
+    bi = np.minimum(np.arange(rows), b.shape[0] - 1)
+    return a[ai] & b[bi]
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
                                f"(ROADMAP Queue 1 {item})")
@@ -93,7 +116,10 @@ class HFLSimulator:
     (under a mesh: on the mesh's device).  ``mesh=`` (sync mode): this
     rank's ``AggMesh``; see the module docstring.  ``delay_model=`` (with
     ``delay_seed``) makes the clock stochastic in both modes; every rank
-    of a mesh draws the same rows.
+    of a mesh draws the same rows.  ``fault_model=`` (with
+    ``fault_policy``, default ``deadline_failover_policy()``, and
+    ``fault_seed``) and ``sampler=`` (with ``sample_seed``) inject faults
+    and partial participation, on one device (solver ``"gd"``).
     """
 
     def __init__(self, schedule: HFLSchedule, loss_fn: Callable,
@@ -103,7 +129,8 @@ class HFLSimulator:
                  seed: int = 0, mode: str = "sync",
                  max_staleness: Optional[int] = 0,
                  staleness_decay: float = 0.9, mesh=None, delay_model=None,
-                 delay_seed: int = 0, fault_model=None, sampler=None,
+                 delay_seed: int = 0, fault_model=None, fault_policy=None,
+                 fault_seed: int = 0, sampler=None, sample_seed: int = 0,
                  device=None):
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
@@ -123,10 +150,32 @@ class HFLSimulator:
         if delay_model is not None and schedule.problem is None:
             raise ValueError("delay_model= needs schedule.problem to sample "
                              "the delay ingredients (eqs. 1-5, 8)")
+        if fault_model is not None and fault_model.is_null():
+            fault_model = None           # the legacy paths, byte for byte
         if fault_model is not None:
-            raise _not_ported("fault_model=", "item 9")
-        if sampler is not None:
-            raise _not_ported("sampler=", "item 9")
+            if schedule.problem is None:
+                raise ValueError("fault_model= needs schedule.problem to "
+                                 "price retries/deadlines (eqs. 1-5, 33)")
+            if solver != "gd":
+                raise ValueError("fault_model= supports solver='gd' only "
+                                 "(DANE's global gradient assumes every UE "
+                                 "reports; survivor masking breaks it)")
+        if sampler is not None and sampler.is_full():
+            sampler = None               # the legacy paths, byte for byte
+        if sampler is not None and solver != "gd":
+            raise ValueError("sampler= supports solver='gd' only (DANE's "
+                             "global gradient assumes every UE reports; "
+                             "cohort masking breaks it)")
+        if mesh is not None and fault_model is not None:
+            raise _not_ported("fault_model= with mesh=", "item 13b")
+        if mesh is not None and sampler is not None:
+            raise _not_ported("sampler= with mesh=", "item 13b")
+        self.fault_model = fault_model
+        self.fault_policy = (fault_policy if fault_policy is not None
+                             else faults.deadline_failover_policy())
+        self.fault_seed = int(fault_seed)
+        self.sampler = sampler
+        self.sample_seed = int(sample_seed)
         self.mesh = mesh
         self.device = resolve_device(
             mesh.device if mesh is not None and device is None else device)
@@ -189,6 +238,14 @@ class HFLSimulator:
         self._local_dane = clients.dane_local_steps(loss_fn, schedule.a, lr,
                                                     mu_prox=dane_mu)
         self._w_total = float(self.weights.sum())
+        # Base measure of the sampled and faulty aggregations: the
+        # sampler's inverse-propensity weights (static per run), else D_n.
+        self._agg_weights = self.weights
+        if sampler is not None:
+            self._agg_weights = torch.as_tensor(
+                sampler.ipw_base_weights(self._sample_key(), w, gids,
+                                         schedule.num_edges),
+                dtype=torch.float32, device=self.device)
         self._per_ue_loss = vmap(lambda p, bb: loss_fn(p, bb)[0],
                                  in_dims=(None, 0))
 
@@ -225,14 +282,25 @@ class HFLSimulator:
         """The run's delay key: ``delay_seed`` on this simulator's device."""
         return Key(self.delay_seed, device=self.device)
 
+    def _fault_key(self) -> Key:
+        """The run's fault key: ``fault_seed`` on this simulator's device."""
+        return Key(self.fault_seed, device=self.device)
+
+    def _sample_key(self) -> Key:
+        """The run's cohort key: ``sample_seed`` on this simulator's
+        device."""
+        return Key(self.sample_seed, device=self.device)
+
     def _single_device(self, what: str) -> None:
         if self.mesh is not None:
             raise _not_ported(f"{what} with mesh=", "item 13b")
 
-    def _edge_rounds(self, flat: torch.Tensor) -> torch.Tensor:
+    def _edge_rounds(self, flat: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
         """b edge rounds on every row of ``flat``: a local steps, written
         in place into ``flat`` through the views that unravel returns, then
-        the eq. 6 edge aggregation."""
+        the eq. 6 edge aggregation under ``weights`` (``self.weights``, or
+        a fault or sampled round's runtime weights)."""
         s = self.schedule
         for _ in range(s.b):
             rows = self._gather_cols(flat)
@@ -247,15 +315,19 @@ class HFLSimulator:
             if rows is not flat:          # the gathered rows are a copy
                 flat.copy_(rows[:, self._slayout.local_cols])
             flat = aggregate.flat_edge_aggregate(
-                flat, self.weights, self.group_ids, s.num_edges,
-                mesh=self.mesh)
+                flat, weights, self.group_ids, s.num_edges, mesh=self.mesh)
         return flat
 
-    def _cloud_round(self) -> None:
+    def _cloud_round(self, w_edge=None, w_cloud=None) -> None:
+        """One sync round; a fault or sampled round passes its runtime
+        weights (``_fault_round_weights``)."""
+        if w_edge is None:
+            w_edge = w_cloud = self.weights
         self._flat = aggregate.flat_cloud_aggregate(
-            self._edge_rounds(self._flat), self.weights, mesh=self.mesh)
+            self._edge_rounds(self._flat, w_edge), w_cloud, mesh=self.mesh)
 
-    def _depart_cycle(self, g: torch.Tensor, mask: torch.Tensor) -> None:
+    def _depart_cycle(self, g: torch.Tensor, mask: torch.Tensor,
+                      w_edge: torch.Tensor) -> None:
         """Re-seed the departing rows (``mask``) from the cloud vector
         ``g``, run the b-iteration edge cycle (Alg. 1 lines 4-9) and commit
         ONLY the masked rows; mid-flight edges' rows pass through.  As in
@@ -264,8 +336,43 @@ class HFLSimulator:
         runs on the fresh seeded copy, never on ``self._flat``: local GD
         writes in place, and the rows of edges in flight must not move."""
         seeded = torch.where(mask[:, None], g[None, :], self._flat)
-        self._flat = torch.where(mask[:, None], self._edge_rounds(seeded),
+        self._flat = torch.where(mask[:, None],
+                                 self._edge_rounds(seeded, w_edge),
                                  self._flat)
+
+    def _fault_round_weights(self, ue_ok, base=None):
+        """(w_edge, w_cloud) of one round or wave from the (N,) bool
+        survivor or cohort mask ``ue_ok``, on the device: edge weights
+        renormalised to each edge's mass over the kept rows
+        (``survivor_weights``: a dead cohort's weights are all 0), and
+        cloud weights D_n zeroed on every edge with no kept mass.  ``base``
+        overrides the base measure (default: the run's, the sampler's
+        inverse-propensity weights or D_n)."""
+        M = self.schedule.num_edges
+        base = (self._agg_weights if base is None else
+                torch.as_tensor(base, dtype=torch.float32,
+                                device=self.device))
+        ok = torch.as_tensor(ue_ok, dtype=torch.bool, device=self.device)
+        w_edge = aggregate.survivor_weights(base, ok, self.group_ids, M)
+        mass = torch.zeros(M, device=self.device).index_add_(
+            0, self.group_ids.long(), base * ok.to(torch.float32))
+        w_cloud = self.weights * (mass > 0)[self.group_ids.long()]
+        return w_edge, w_cloud
+
+    def hot_survivor_rows(self, survivors) -> np.ndarray:
+        """``(C, N)`` bool per-UE survivor masks (original UE order, such
+        as ``FaultyCycles.survivors``) on the flat buffer's rows: on one
+        device the same order."""
+        self._single_device("hot_survivor_rows")
+        return np.asarray(survivors, bool)
+
+    def _participation_matrix(self, num_rounds: int) -> np.ndarray:
+        """(num_rounds, N) bool cohort masks, one batched keyed draw
+        (``sampler.sample_rounds``)."""
+        return self.sampler.sample_rounds(
+            self._sample_key(), self.weights.cpu().numpy(),
+            self.group_ids.cpu().numpy(), self.schedule.num_edges,
+            num_rounds)
 
     def global_params(self) -> dict:
         """The cloud model: weighted mean over UE replicas (eq. 10).  Under
@@ -305,21 +412,18 @@ class HFLSimulator:
             return self._run_async(test_batch, rounds, eval_every, verbose)
         sched = self.schedule
         rounds = rounds or sched.rounds
-        if self.delay_model is not None:
-            # One batched draw for the whole run: round r costs the max
-            # over edges of that round's cycle draw (stochastic eq. 34).
-            draws = self.delay_model.cycle_times(
-                self._delay_key(), sched.problem, sched.assoc, sched.a,
-                sched.b, rounds)
-            round_times = np.asarray(draws).max(axis=1)
-        else:
-            round_times = np.full(rounds, sched.cloud_round_time)  # eq. (34)
+        round_times, kept = self._sync_plan(rounds)
         test = {k: torch.as_tensor(v, device=self.device)
                 for k, v in test_batch.items()}
         times, accs, tlosses, trlosses = [], [], [], []
         clock = 0.0
         for r in range(rounds):
-            self._cloud_round()
+            if kept is None:
+                self._cloud_round()
+            elif kept[r].any():
+                self._cloud_round(*self._fault_round_weights(kept[r]))
+            # else: nothing delivered — the round is wasted wall-clock and
+            # the model stays put (no cloud event sees all-zero weights)
             clock += float(round_times[r])
             if (r + 1) % eval_every == 0 or r == rounds - 1:
                 acc, loss, trl = self._evaluate(self.global_params(), test)
@@ -329,11 +433,62 @@ class HFLSimulator:
                 trlosses.append(trl)
                 if verbose:
                     print(f"round {r+1:3d}/{rounds}  t={clock:9.2f}s  "
-                          f"acc={accs[-1]:.4f}  loss={tlosses[-1]:.4f}")
+                          f"acc={accs[-1]:.4f}  loss={tlosses[-1]:.4f}"
+                          + ("" if kept is None else
+                             f"  kept={int(kept[r].sum())}"))
         return SimResult(times=np.array(times), test_acc=np.array(accs),
                          test_loss=np.array(tlosses),
                          train_loss=np.array(trlosses),
                          schedule=sched, final_params=self.global_params())
+
+    def _sync_plan(self, rounds: int):
+        """(round_times, kept) of ``rounds`` sync rounds: each round's
+        simulated seconds and its (N,) bool mask of the rows it aggregates
+        (``kept`` is None for the legacy rounds, which aggregate all).
+
+        * Faults: one ``faulty_cycle_stats`` draw prices the run.
+          Wait-for-all pays every straggler (come-back waits, unbounded
+          retries, outage stalls): round r is ``max_m`` of the stalled
+          cycle times.  A deadline policy cuts at ``D_m`` and skips edges
+          inside an outage.  Round r keeps its survivors outside down
+          edges (ANDed with the cohort under a sampler; the clock keeps
+          the policy's full-fleet pricing, set before the cohort is known).
+        * Sampling: round r keeps its cohort and costs eq. 34 with each
+          edge's tau the member max over the cohort only
+          (``participation=``; ``DeterministicDelays`` without a model).
+        * Neither: the constant eq. 34 T, or one batched draw of the delay
+          model (round r costs the max over edges of its cycle draw).
+        """
+        sched = self.schedule
+        if self.fault_model is not None:
+            policy = self.fault_policy
+            fc = faults.faulty_cycle_stats(
+                self.fault_model, policy, self._fault_key(), sched.problem,
+                sched.assoc, sched.a, sched.b, rounds,
+                delay_model=self.delay_model)
+            if policy.name == faults.WAIT_FOR_ALL:
+                round_times = (fc.cycle_times + fc.stall).max(axis=1)
+            else:
+                round_times = np.where(fc.down, 0.0,
+                                       fc.cycle_times).max(axis=1)
+            kept = self.hot_survivor_rows(fc.survivors)
+            if self.sampler is not None:
+                kept = kept & self._participation_matrix(rounds)
+            gids = self.group_ids.cpu().numpy()
+            return round_times, kept & ~fc.down[:, gids]
+        if self.sampler is not None:
+            kept = self._participation_matrix(rounds)
+            dm = self.delay_model or DeterministicDelays()
+            draws = dm.cycle_times(self._delay_key(), sched.problem,
+                                   sched.assoc, sched.a, sched.b, rounds,
+                                   participation=kept)
+            return np.asarray(draws).max(axis=1), kept
+        if self.delay_model is not None:
+            draws = self.delay_model.cycle_times(
+                self._delay_key(), sched.problem, sched.assoc, sched.a,
+                sched.b, rounds)
+            return np.asarray(draws).max(axis=1), None
+        return np.full(rounds, sched.cloud_round_time), None   # eq. (34)
 
     # ------------------------------------------------------------------
     # Replay hooks (mode='async'): the event-replay primitives
@@ -359,15 +514,19 @@ class HFLSimulator:
                          agg_weights=None) -> None:
         """One departure wave: re-seed the masked rows from ``g``, run
         their b-iteration edge cycle and commit them into the flat buffer.
-        ``mask`` is an (N,) bool over rows (the departing cohorts)."""
+        ``mask`` is an (N,) bool over rows (the departing cohorts).  With
+        ``ue_ok`` (an (N,) bool of the rows that take part: fault
+        survivors, a cohort) the wave aggregates under the weights of
+        ``_fault_round_weights``, over ``agg_weights`` as the base measure
+        if given; excluded rows still train but carry zero weight."""
         if self.mode != "async":
             raise RuntimeError("replay_departure requires mode='async'")
-        if ue_ok is not None or agg_weights is not None:
-            raise _not_ported("replay_departure(ue_ok=, agg_weights=)",
-                              "items 9 and 12")
+        w_edge = self.weights
+        if ue_ok is not None:
+            w_edge, _ = self._fault_round_weights(ue_ok, base=agg_weights)
         self._depart_cycle(self.place_cloud_vector(g),
                            torch.as_tensor(mask, dtype=torch.bool,
-                                           device=self.device))
+                                           device=self.device), w_edge)
 
     def replay_merge(self, g, decay) -> torch.Tensor:
         """Staleness-weighted cloud merge of the arrived edges.  ``decay``
@@ -434,31 +593,73 @@ class HFLSimulator:
             raise ValueError("mode='async' needs schedule.problem to derive "
                              "per-edge cycle times (eqs. 8/33)")
         rounds = rounds or sched.rounds
-        stats = delay.async_completion(
-            sched.problem, sched.assoc, sched.a, sched.b, rounds=rounds,
-            max_staleness=self.max_staleness, delay_model=self.delay_model,
-            key=self._delay_key())
+        part = None
+        if self.sampler is not None:
+            # one cohort per cycle, drawn for the longest trace the gate
+            # allows (later cycles clamp to the last row)
+            part = self._participation_matrix(rounds + self.max_staleness)
+        if self.fault_model is not None:
+            # the policy prices the full fleet; only the model's masks
+            # compose with the cohort
+            stats = delay.faulty_async_completion(
+                sched.problem, sched.assoc, sched.a, sched.b, rounds=rounds,
+                max_staleness=self.max_staleness,
+                fault_model=self.fault_model, policy=self.fault_policy,
+                delay_model=self.delay_model, key=self._fault_key())
+            surv = self.hot_survivor_rows(stats["cycle_stats"].survivors)
+            if part is not None:
+                surv = _combine_masks(surv, part)
+        else:
+            stats = delay.async_completion(
+                sched.problem, sched.assoc, sched.a, sched.b, rounds=rounds,
+                max_staleness=self.max_staleness,
+                delay_model=self.delay_model, key=self._delay_key(),
+                participation=part)
+            surv = part
         tl = stats["timeline"]
         active = np.asarray(stats["active_edges"])
         gids = self.group_ids.cpu().numpy()
+        weights = self.weights.cpu().numpy()
         test = {k: torch.as_tensor(v, device=self.device)
                 for k, v in test_batch.items()}
 
         g = self.cloud_vector()
         num_updates = len(tl.updates)
         pending = np.zeros(gids.shape[0], dtype=bool)
+        # Under faults or sampling: each row's flag in its LAST departed
+        # cycle's mask (the wave's weights renormalise to them) and each
+        # edge's last departed cycle (a merge of a dead cohort is skipped).
+        pending_ok = np.ones(gids.shape[0], dtype=bool)
+        last_cycle = np.zeros(sched.num_edges, dtype=np.int64)
         times, accs, tlosses, trlosses = [], [], [], []
         updates_seen = 0
         for kind, ev in tl.trace:
             if kind == "depart":
-                pending |= gids == int(active[ev.edge])
+                cohort = gids == int(active[ev.edge])
+                pending |= cohort
+                if surv is not None:
+                    row = min(ev.cycle - 1, surv.shape[0] - 1)
+                    pending_ok[cohort] = surv[row, cohort]
+                    last_cycle[int(active[ev.edge])] = row
                 continue
+            if kind in ("fail", "repair"):
+                continue        # clock annotations: a voided cycle's
+                                # delivery never appears in the trace
             if pending.any():
-                self.replay_departure(g, pending)
+                self.replay_departure(
+                    g, pending, ue_ok=(None if surv is None else
+                                       np.where(pending, pending_ok, True)))
                 pending = np.zeros_like(pending)
             decay = np.zeros(sched.num_edges)
             for e, _, s in ev.merges:
-                decay[int(active[e])] = self.staleness_decay ** s
+                m = int(active[e])
+                ok = 1.0
+                if surv is not None:
+                    cohort = gids == m
+                    mass = (weights[cohort] *
+                            surv[last_cycle[m], cohort]).sum()
+                    ok = float(mass > 0)  # dead cohort: zero rows, no merge
+                decay[m] = ok * self.staleness_decay ** s
             g = self.replay_merge(g, decay)
             updates_seen += 1
             if updates_seen % eval_every == 0 or updates_seen == num_updates:

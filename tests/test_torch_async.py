@@ -27,6 +27,17 @@ from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
 from repro_torch.models import lenet as t_lenet  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these small operations gain nothing from more,
+    and idle threads spinning would slow the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PROBLEM = dict(num_edges=2, num_ues=8, epsilon=0.25, seed=0, samples_lo=50,
                samples_hi=120)
 ATOL = 1e-5
@@ -190,14 +201,17 @@ def test_replay_hooks_match_reference(setup):
 
 
 def test_replay_hooks_refuse_what_is_not_ported(setup):
+    """What the hooks refuse, as the reference does: replay in sync mode
+    (with or without ``ue_ok=``/``agg_weights=``, which are ported) and a
+    flat state of another shape."""
     tsim = _tsim(setup, mode="async")
     g = tsim.cloud_vector()
     mask = np.ones(8, bool)
-    with pytest.raises(NotImplementedError, match="items 9 and 12"):
-        tsim.replay_departure(g, mask, ue_ok=mask)
-    with pytest.raises(NotImplementedError, match="items 9 and 12"):
-        tsim.replay_departure(g, mask, agg_weights=np.ones(8))
     sync = _tsim(setup)
+    with pytest.raises(RuntimeError, match="mode='async'"):
+        sync.replay_departure(g, mask, ue_ok=mask)
+    with pytest.raises(RuntimeError, match="mode='async'"):
+        sync.replay_departure(g, mask, ue_ok=mask, agg_weights=np.ones(8))
     with pytest.raises(RuntimeError):
         sync.replay_departure(g, mask)
     with pytest.raises(RuntimeError):

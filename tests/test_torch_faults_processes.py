@@ -14,42 +14,14 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from _jax_key import JaxKey  # noqa: E402
+
 from repro.core import assoc as j_assoc  # noqa: E402
 from repro.core import faults as j_f  # noqa: E402
 from repro.core.problem import HFLProblem as JProblem  # noqa: E402
 from repro_torch.core import faults as t_f  # noqa: E402
 from repro_torch.core import stochastic as t_st  # noqa: E402
 from repro_torch.core.problem import HFLProblem as TProblem  # noqa: E402
-
-
-class JaxKey:
-    """The port's key protocol over ``jax.random`` (as in
-    ``tests/test_torch_stochastic.py``)."""
-
-    device = torch.device("cpu")
-
-    def __init__(self, key):
-        self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
-
-    def split(self, n=2):
-        return [JaxKey(k) for k in jax.random.split(self.key, n)]
-
-    def fold_in(self, i):
-        return JaxKey(jax.random.fold_in(self.key, int(i)))
-
-    @staticmethod
-    def _t(x):
-        return torch.from_numpy(np.array(x, np.float32))
-
-    def normal(self, shape):
-        return self._t(jax.random.normal(self.key, tuple(shape)))
-
-    def exponential(self, shape):
-        return self._t(jax.random.exponential(self.key, tuple(shape)))
-
-    def uniform(self, shape, minval=0.0, maxval=1.0):
-        return self._t(jax.random.uniform(self.key, tuple(shape),
-                                          minval=minval, maxval=maxval))
 
 
 @pytest.fixture(scope="module")

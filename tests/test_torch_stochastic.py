@@ -25,6 +25,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from _jax_key import JaxKey  # noqa: E402
+
 from repro.configs.lenet_mnist import SMOKE_CONFIG as J_SMOKE  # noqa: E402
 from repro.core import assoc as j_assoc  # noqa: E402
 from repro.core import delay as j_delay  # noqa: E402
@@ -50,34 +52,14 @@ PROB = dict(num_edges=4, num_ues=24, epsilon=0.25, seed=0)
 A_ITERS, B_ITERS = 8, 3
 
 
-class JaxKey:
-    """The port's key protocol over ``jax.random``: the reference's
-    variates, as float32 CPU tensors, through the port's code."""
-
-    device = torch.device("cpu")
-
-    def __init__(self, key):
-        self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
-
-    def split(self, n=2):
-        return [JaxKey(k) for k in jax.random.split(self.key, n)]
-
-    def fold_in(self, i):
-        return JaxKey(jax.random.fold_in(self.key, int(i)))
-
-    @staticmethod
-    def _t(x):
-        return torch.from_numpy(np.array(x, np.float32))
-
-    def normal(self, shape):
-        return self._t(jax.random.normal(self.key, tuple(shape)))
-
-    def exponential(self, shape):
-        return self._t(jax.random.exponential(self.key, tuple(shape)))
-
-    def uniform(self, shape, minval=0.0, maxval=1.0):
-        return self._t(jax.random.uniform(self.key, tuple(shape),
-                                          minval=minval, maxval=maxval))
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these small operations gain nothing from more,
+    and idle threads spinning would slow the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # Every scenario's model, and the hooks' other settings.
