@@ -28,8 +28,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    host time a call and one call's device time, and with half and twice
    the warps rule's choice), ``segment_aggregate`` also at phase 9's
    slab, ``cloud_aggregate`` with all-zero weights (NaN, as the
-   reference), ``segment_sum`` at the streaming chunk and the LeNet cohort
-   (and with half and twice its rule's row slices).
+   reference), ``segment_sum`` at the streaming chunk, the LeNet cohort
+   and phase 13's merge chunk (20 rows, M=1; and with half and twice its
+   rule's row slices at the streaming chunk).
    ``flash_attention`` at the prefill shapes of
    phases 7 and 8 and of the serving CLI (beside masked SDPA, SDPA with
    ``is_causal=True`` and with ``enable_gqa=True`` where there is no window;
@@ -116,7 +117,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``max_staleness=2`` under deadline+failover (timeline =
    ``faulty_async_completion`` on the card, ``b*`` launches a wave); then
    ``fault_makespan_distribution`` over 8 trials, both policies.
-12. Kernel records as JSON (``launches``: each path's count, read around
+12. Joint planning at full width, with cuDNN's deterministic algorithms:
+   ``plan_joint`` on phase 3's problem gives ``plan()``'s (a, b) under
+   deterministic delays; under ``urban_stragglers`` (16 trials,
+   ``Key(0)``) ``solve_joint`` with the key on the card chooses the tuple
+   (a, b, max_staleness, bandwidth) it chooses with the key on the CPU,
+   every history objective within 1e-6; ``refined(objective="joint")``
+   on the 12-UE, 3-edge problem; then ``HFLSimulator(plan_joint's
+   schedule, mode="async", max_staleness=None)`` on full-width LeNet for
+   three one-round segments (``b*`` ``segment_aggregate`` launches a
+   departure wave), checkpointed after the first through ``save_pytree``
+   (``{"flat", "params"}``) and finished on a fresh simulator restored by
+   ``load_pytree(target=)`` and the ``params`` setter: the clock, trace,
+   losses and params equal the uninterrupted run's (max|err| 0.0).
+13. The always-on service on the card, with cuDNN's deterministic
+   algorithms: ``HFLService`` over a full-width LeNet async simulator on
+   phase 3's problem (max_staleness 4, the segments of the JAX package's
+   ``tools/crash_smoke.py``), 40 events checkpointed every 10 (the burst
+   drives shedding); a service resumed from the event-20 checkpoint ends
+   with the same trace, its model within 1e-6; a ``merge_stream_chunk=32``
+   run (``segment_sum`` once a chunk, the accumulator on the card) whose
+   rows are the direct reads' within 1e-5 and whose trace is the first
+   run's, each of its chunks then held to ``segment_sum``'s plain version
+   as phase 2 holds it, on the chunk's own rows and on distinct random
+   rows of its shape under its weights; an ``edge_outage`` run with ``fail``, ``repair`` and
+   ``failover`` records, and a wave with a dead cohort whose rows are
+   exactly 0; and, in processes of their own beside those runs,
+   ``python -m repro_torch.launch.service --device cuda`` (24 UEs, 4
+   edges, 160 events) killed with SIGKILL after two checkpoints and
+   rerun with ``--resume``: its final checkpoint has an in-process run's
+   trace and model (within 1e-6).  Each run's
+   ``segment_aggregate`` launches are ``b*`` a departure wave.
+14. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phase 9, over the ranks), then the result line.
 
@@ -128,8 +160,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -241,6 +276,31 @@ FAULT_SEED = 0
 FAULT_ROUNDS = 4
 FAULT_TRIALS = 8
 SAMPLER, SAMPLE_RATE = "weight", 0.1
+# Phase 12: the joint optimizer on phase 3's problem (16 trials: the
+# reference's solve_joint default), refined(objective="joint") on the
+# README's 12-UE, 3-edge problem.
+JOINT_SEED = 0
+JOINT_TRIALS = 16
+JOINT_MAX_MOVES = 5
+# Phase 13: the always-on service on phase 3's problem and model, with the
+# segments of the JAX package's tools/crash_smoke.py (a 4x burst from 40 to
+# 100 s simulated); 40 events reach the burst's shedding.  The SIGKILL run
+# is tools/crash_smoke.py's: the CLI's logreg federation of 24 UEs on 4
+# edges, 160 events.
+SERVICE_SEGMENTS = "iid_campus:1.0:40,iid_campus:4.0:60,iid_campus:1.0:inf"
+SERVICE_STALENESS = 4
+SERVICE_EVENTS = 40
+SERVICE_CKPT_EVERY = 10
+SERVICE_RESUME_AT = 20
+SERVICE_STREAM_CHUNK = 32
+SERVICE_STREAM_EVENTS = 10
+SERVICE_FAULT_SEED = 0        # edge_outage: an edge down at the t=40 s
+SERVICE_FAULT_EVENTS = 5      # boundary, its repair within 5 events
+SERVICE_MODEL_TOL = 1e-6      # the JAX service's own resume rule
+STREAM_MERGE_TOL = 1e-5       # streamed against direct merge rows, as there
+SERVICE_CHUNK_SEED = 3       # distinct rows for K4 at the service's chunks
+KILL_UES, KILL_EDGES, KILL_EVENTS = 24, 4, 160
+KILL_TIMEOUT_S = 300
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -554,6 +614,7 @@ def sum_cases(device):
             ("stream_n8192_f1024", STREAM_CHUNK, STREAM_COLS, STREAM_GROUPS,
              None),
             ("lenet_n100_f44426", 100, 44_426, 5, None),
+            ("service_n20_f44426_m1", 20, 44_426, 1, None),
             ("chunk_of_1", 1, STREAM_COLS, STREAM_GROUPS, None),
             ("chunk_of_7", 7, STREAM_COLS, STREAM_GROUPS, None),
             ("ragged_f1001", STREAM_CHUNK, 1001, STREAM_GROUPS, None),
@@ -2332,6 +2393,480 @@ def _phase_faults(sch, ue_data, test) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12
+# ---------------------------------------------------------------------------
+
+
+def phase_joint(ue_data, test) -> dict:
+    """Phase 12; returns each kernel's launches over its async runs.
+    cuDNN's deterministic algorithms make the resumed run's bit-for-bit
+    comparison a check of the checkpoint, not of cuDNN."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_joint(ue_data, test)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _phase_joint(ue_data, test) -> dict:
+    # imported here, so that the script still imports in an older tree
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.core import assoc, jointopt
+    from repro_torch.core.schedule import plan_joint
+    from repro_torch.core.stochastic import Key
+    t_phase = time.perf_counter()
+    paper = plan(HFLProblem(**MAIN))
+    det = plan_joint(HFLProblem(**MAIN), scenario="deterministic",
+                     key=Key(JOINT_SEED, device="cuda"))
+    print(f"plan_joint(deterministic): (a, b) = ({det.a}, {det.b}), "
+          f"max_staleness {det.meta['max_staleness']}, bandwidth "
+          f"{det.meta['bandwidth']}; plan(): ({paper.a}, {paper.b})")
+    check((det.a, det.b) == (paper.a, paper.b),
+          "plan_joint(deterministic) != plan()'s (a, b)")
+
+    A = paper.assoc
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sols[dev] = jointopt.solve_joint(
+            HFLProblem(**MAIN), A, model=STOCH_SCENARIO,
+            num_trials=JOINT_TRIALS, key=Key(JOINT_SEED, device=dev))
+        print(f"solve_joint({STOCH_SCENARIO}, {JOINT_TRIALS} trials, key on "
+              f"{dev}): {len(sols[dev].history)} tuples in "
+              f"{time.perf_counter() - t0:.3f} s")
+    card, host = sols["cuda"], sols["cpu"]
+    tup = (card.a, card.b, card.max_staleness, card.bandwidth)
+    check(tup == (host.a, host.b, host.max_staleness, host.bandwidth),
+          f"joint tuple on the card {tup} != the CPU's")
+    h_card = np.array([h[4] for h in card.history])
+    h_host = np.array([h[4] for h in host.history])
+    fin = np.isfinite(h_host)
+    rel = float(np.max(np.abs(h_card[fin] - h_host[fin]) / h_host[fin]))
+    check(np.array_equal(np.isfinite(h_card), fin)
+          and [h[:4] for h in card.history] == [h[:4] for h in host.history]
+          and rel <= CLOCK_RTOL,
+          f"joint history: card vs CPU max relative {rel:.3e}")
+    t0 = time.perf_counter()
+    sched = plan_joint(HFLProblem(**MAIN), scenario=STOCH_SCENARIO,
+                       num_trials=JOINT_TRIALS,
+                       key=Key(JOINT_SEED, device="cuda"))
+    plan_s = time.perf_counter() - t0
+    print(f"plan_joint({STOCH_SCENARIO}) on the card in {plan_s:.3f} s: "
+          f"(a, b, max_staleness, bandwidth) = {tup}, p95 time-to-target "
+          f"{card.objective!r} s (paper's (a, b) = ({paper.a}, {paper.b})); "
+          f"history card vs CPU max relative {rel:.3e}")
+    check((sched.a, sched.b, sched.meta["max_staleness"],
+           sched.meta["bandwidth"]) == tup, "plan_joint != solve_joint")
+
+    readme = HFLProblem(num_edges=3, num_ues=12, seed=0)
+    t0 = time.perf_counter()
+    ra = assoc.refined(readme, a=8, objective="joint", b=3, rounds=6,
+                       max_staleness=2, num_trials=12,
+                       max_moves=JOINT_MAX_MOVES,
+                       delay_key=Key(JOINT_SEED, device="cuda"))
+    print(f"refined(objective='joint') on the 12-UE, 3-edge problem in "
+          f"{time.perf_counter() - t0:.3f} s: edge sizes "
+          f"{ra.sum(0).tolist()}")
+    check(bool((ra.sum(1) == 1).all()), "refined(joint): one edge a UE")
+
+    sim = make_sim(sched, ue_data, "cuda", mode="async", max_staleness=None)
+    check(sim.max_staleness == sched.meta["max_staleness"],
+          f"max_staleness {sim.max_staleness} != the plan's "
+          f"{sched.meta['max_staleness']}")
+    launches = dict.fromkeys(KERNELS, 0)
+    waves = 0
+
+    def segment(s):
+        nonlocal waves
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = s.run(test, rounds=1)
+        torch.cuda.synchronize()
+        got, w = counts(), departure_waves(res.timeline)
+        check(got == expect(segment_aggregate=sched.b * w),
+              f"joint async: launch counts {got} != b*waves={sched.b * w}")
+        for name in KERNELS:
+            launches[name] += got[name]
+        waves += w
+        return res, time.perf_counter() - t0
+
+    first, first_s = segment(sim)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_pytree(os.path.join(tmp, "sim"),
+                           {"flat": sim.flat_state(), "params": sim.params})
+        fresh = make_sim(sched, ue_data, "cuda", mode="async",
+                         max_staleness=None)
+        tree, _ = load_pytree(path, target={"flat": fresh.flat_state(),
+                                            "params": fresh.params})
+    fresh.params = tree["params"]
+    check(np.array_equal(fresh.flat_state(), tree["flat"]),
+          "restored params != the checkpoint's flat buffer")
+    check(all(t.device.type == "cuda" for t in tree_leaves(tree["params"])),
+          "load_pytree(target=) left a leaf off the card")
+    ref, ref_s = segment(sim)
+    res, res_s = segment(fresh)
+    err = max(float((x - y).abs().max()) for x, y in
+              zip(tree_leaves(res.final_params),
+                  tree_leaves(ref.final_params)))
+    updates = len(first.timeline.updates)
+    print(f"joint async run, full-width LeNet, max_staleness "
+          f"{sim.max_staleness}: {updates} cloud updates a segment, "
+          f"{waves} departure waves over 3 segments; "
+          f"{first_s / updates:.3f}, {ref_s / updates:.3f}, "
+          f"{res_s / updates:.3f} s per update (first call included in the "
+          f"first)")
+    print(f"  checkpoint {{flat, params}} mid-run, resumed on a fresh "
+          f"simulator: clock {float(res.timeline.makespan)!r} against "
+          f"{float(ref.timeline.makespan)!r} s; params max|err| {err!r}")
+    check(np.array_equal(res.times, ref.times)
+          and res.timeline.trace == ref.timeline.trace,
+          "resumed clock != the uninterrupted run's")
+    check(err == 0.0, f"resumed params max|err| {err!r} != 0.0")
+    check(np.array_equal(res.test_loss, ref.test_loss),
+          "resumed losses != the uninterrupted run's")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13
+# ---------------------------------------------------------------------------
+
+
+def phase_service(sch, ue_data, test) -> dict:
+    """Phase 13; returns each kernel's launches over its in-process
+    services.  The SIGKILL pair's processes start first and run beside
+    them.  cuDNN's deterministic algorithms make the resumed run's
+    comparison a check of the checkpoint, not of cuDNN."""
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        kill = start_service_kill(tmp)
+        try:
+            return _phase_service(sch, ue_data, test, kill, tmp)
+        finally:
+            stop_processes(kill)
+            torch.backends.cudnn.deterministic = False
+
+
+def count_waves(sim) -> list:
+    """Count ``sim``'s departure waves (``replay_departure`` calls) into
+    the returned one-item list."""
+    waves = [0]
+    replay = sim.replay_departure
+
+    def counted(*a, **k):
+        waves[0] += 1
+        return replay(*a, **k)
+
+    sim.replay_departure = counted
+    return waves
+
+
+def _merge_records(svc) -> list:
+    return [(round(r["t"], 9), r["edge"], r["cycle"], r["stale"])
+            for r in svc.trace if r["kind"] == "merge"]
+
+
+def counted_run(label: str, build, events: int, before=None,
+                extra=None) -> tuple:
+    """Build a service (``build() -> (svc, waves)``), call ``before(svc)``
+    and run it to ``events`` events, the kernels' counts reset before the
+    build and read after the run: K1 launches b* a departure wave, and
+    ``extra()`` names the run's other launches.  Returns
+    ``(svc, launched)``."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    svc, waves = build()
+    if before is not None:
+        before(svc)
+    start = svc.events_done
+    svc.run(events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = expect(segment_aggregate=svc.sim.schedule.b * waves[0],
+                  **(extra() if extra is not None else {}))
+    check(got == want, f"{label}: launch counts {got} != {want} (K1 b* a "
+          f"wave over {waves[0]} waves)")
+    s = svc.summary()
+    print(f"  {label}: events {start}..{svc.events_done}, {waves[0]} waves, "
+          f"{s['applied']} merges, {s['shed']} shed, clock "
+          f"{svc.clock:.3f} s simulated; {wall:.3f} s wall, "
+          f"{wall / (svc.events_done - start):.4f} s per event "
+          f"(construction included)")
+    check(bool(np.isfinite(svc.g).all()), f"{label}: finite model")
+    return svc, got
+
+
+def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> dict:
+    # imported here, so that the script still imports in an older tree
+    from repro_torch.core import scenario
+    from repro_torch.launch import service as S
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    segs = S._parse_segments(SERVICE_SEGMENTS)
+    gids = sch.assoc.argmax(1)                # each row's edge
+
+    def run(label, events, before=None, extra=None, **kw):
+        """One service over a fresh full-width LeNet simulator, its waves
+        counted; its launches are added to the phase's."""
+        def build():
+            sim = make_sim(sch, ue_data, "cuda", mode="async",
+                           max_staleness=SERVICE_STALENESS)
+            waves = count_waves(sim)
+            cfg = S.ServiceConfig(segments=segs,
+                                  max_staleness=SERVICE_STALENESS, **kw)
+            return S.HFLService(sim, cfg), waves
+
+        svc, got = counted_run(label, build, events, before, extra)
+        for name in KERNELS:
+            launches[name] += got[name]
+        return svc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = dict(ckpt_dir=os.path.join(tmp, "inproc"),
+                    ckpt_every=SERVICE_CKPT_EVERY)
+        print(f"service: full-width LeNet on phase 3's problem, "
+              f"max_staleness {SERVICE_STALENESS}, segments "
+              f"{SERVICE_SEGMENTS}")
+        full = run("uninterrupted", SERVICE_EVENTS, **ckpt)
+        s = full.summary()
+        check(s["shed"] > 0 and any(r["kind"] == "degraded" and r["on"]
+                                    for r in full.trace),
+              "the burst drove no shedding")
+        print(f"  p50 {s['p50']!r} s, p95 {s['p95']!r} s latency "
+              f"(simulated); checkpoints {s['ckpt_wall']:.3f} s of "
+              f"{s['run_wall']:.3f} s run wall")
+        # a crash after the mid-run checkpoint: the newer files are gone
+        keep = SERVICE_RESUME_AT // SERVICE_CKPT_EVERY
+        for p in S.list_checkpoints(ckpt["ckpt_dir"])[keep:]:
+            os.remove(p)
+        src = []
+
+        def restore(svc):
+            src.append(svc.restore_latest())
+            check(svc.events_done == SERVICE_RESUME_AT,
+                  f"resumed at {svc.events_done} events from {src[0]}")
+
+        resumed = run("resumed", SERVICE_EVENTS, before=restore, **ckpt)
+        err = float(np.abs(resumed.g - full.g).max())
+        same = _merge_records(resumed) == _merge_records(full)
+        print(f"  resumed from {os.path.basename(src[0])} at event "
+              f"{SERVICE_RESUME_AT}: trace equal {same}; model max|err| "
+              f"{err!r}")
+        check(same, "resumed trace != the uninterrupted run's")
+        check(err <= SERVICE_MODEL_TOL,
+              f"resumed model max|err| {err!r} > {SERVICE_MODEL_TOL}")
+
+    # The streaming merge: each merge row folded through the accumulator
+    # on the card, held against the direct read of the same row; each
+    # chunk the accumulator was given is kept for K4's check below.
+    rows, stream_errs, chunks = [], [], []
+
+    def streamed(svc):
+        check(svc._stream_acc.device.type == "cuda",
+              "the streaming accumulator is not on the card")
+        merge_row, add = svc._merge_row, svc._stream_acc.add
+
+        def checked(m):
+            row = merge_row(m)
+            rows.append(m)
+            direct = svc.sim.edge_mean_row(m).cpu().numpy()
+            stream_errs.append(float(np.abs(row - direct).max()))
+            return row
+
+        def kept(buf, weights, group_ids):
+            chunks.append((buf.clone(), torch.as_tensor(
+                weights, dtype=torch.float32, device="cuda"),
+                torch.as_tensor(group_ids, dtype=torch.int32,
+                                device="cuda")))
+            return add(buf, weights, group_ids)
+
+        svc._merge_row = checked
+        svc._stream_acc.add = kept
+
+    sizes = np.bincount(gids, minlength=sch.num_edges)
+
+    def chunk_launches():
+        return dict(segment_sum=sum(-(-int(sizes[m]) // SERVICE_STREAM_CHUNK)
+                                    for m in rows))
+
+    stream = run("streaming merge", SERVICE_STREAM_EVENTS, before=streamed,
+                 extra=chunk_launches,
+                 merge_stream_chunk=SERVICE_STREAM_CHUNK)
+    prefix = _merge_records(full)[:len(_merge_records(stream))]
+    print(f"  streaming merge (chunks of {SERVICE_STREAM_CHUNK}): "
+          f"{len(rows)} merge rows, {len(chunks)} chunks; streamed vs "
+          f"direct row max|err| {max(stream_errs)!r}; trace = the "
+          f"uninterrupted run's first merges: "
+          f"{_merge_records(stream) == prefix}")
+    check(len(chunks) == chunk_launches()["segment_sum"],
+          f"{len(chunks)} chunks folded, {chunk_launches()} expected")
+    check(max(stream_errs) <= STREAM_MERGE_TOL,
+          f"streamed rows vs direct {max(stream_errs)!r}")
+    check(_merge_records(stream) == prefix,
+          "two runs of one configuration gave different traces")
+    # K4 at the chunks the service gave it, against its plain version:
+    # on the path's own rows, and on distinct random rows of the same
+    # shape under the path's weights (at merge time a cohort's rows all
+    # hold one edge mean, so only distinct rows show a wrong row order
+    # or weight index).  These launches come after the counts were read.
+    gen = torch.Generator(device="cuda").manual_seed(SERVICE_CHUNK_SEED)
+    cases = {}
+    for i, (buf, w, gid) in enumerate(chunks):
+        cases[f"service_chunk{i}"] = (buf, w, gid, 1)
+        cases[f"service_chunk{i}_distinct"] = (
+            torch.randn(buf.shape, generator=gen, device="cuda"), w, gid, 1)
+    err = check_segment_sum_against_plain(cases)
+    print(f"  segment_sum at the service's {len(chunks)} chunks "
+          f"({tuple(chunks[0][0].shape)}, M=1): max|err| {err:.3e} against "
+          f"its plain version")
+
+    faulted = run("edge_outage", SERVICE_FAULT_EVENTS,
+                  fault_model=scenario("edge_outage").faults,
+                  fault_seed=SERVICE_FAULT_SEED)
+    kinds = {r["kind"] for r in faulted.trace}
+    check({"fail", "repair", "failover"} <= kinds,
+          f"edge_outage: records {sorted(kinds)}")
+    fo = [r for r in faulted.trace if r["kind"] == "failover"][0]
+    print(f"  edge_outage: records {sorted(kinds)}; failover at t={fo['t']} "
+          f"of edges {fo['edges']} ({fo['orphans']} orphans)")
+    dead = int(gids[0])
+    reset_counts()
+    faulted.sim.replay_departure(faulted.g, np.ones(gids.size, bool),
+                                 ue_ok=gids != dead)
+    got = counts()
+    check(got == expect(segment_aggregate=sch.b), f"dead wave: {got}")
+    for name in KERNELS:
+        launches[name] += got[name]
+    flat = faulted.sim.flat_state()
+    check(bool(np.isfinite(flat).all()) and (flat[gids == dead] == 0).all(),
+          "a dead cohort's rows are not exactly 0")
+    print(f"  a wave with edge {dead}'s cohort dead: its rows exactly 0, "
+          f"every row finite")
+
+    killed = finish_service_kill(kill, kill_dir)
+    for name in KERNELS:
+        launches[name] += killed[name]
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def kill_args(ckpt_dir: str) -> list:
+    """The service CLI on the card with the JAX package's
+    ``tools/crash_smoke.py`` settings, checkpointing into ``ckpt_dir``."""
+    return [sys.executable, "-m", "repro_torch.launch.service", "--device",
+            "cuda", "--ues", str(KILL_UES), "--edges", str(KILL_EDGES),
+            "--max-staleness", str(SERVICE_STALENESS), "--segments",
+            SERVICE_SEGMENTS, "--max-updates", str(KILL_EVENTS),
+            "--ckpt-every", str(SERVICE_CKPT_EVERY), "--ckpt-dir", ckpt_dir]
+
+
+def kill_and_resume(ckpt_dir: str, procs: list) -> dict:
+    """Start the service CLI, SIGKILL it after two checkpoints and rerun
+    it with ``--resume`` to its end; each process is appended to
+    ``procs`` as it starts, and every wait times out."""
+    from repro_torch.launch import service as S
+    cmd = kill_args(ckpt_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    log = os.path.join(ckpt_dir, "victim.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        victim = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                  stderr=err)
+    procs.append(victim)
+    while len(S.list_checkpoints(ckpt_dir)) < 2:
+        if victim.poll() is not None:
+            raise RuntimeError(
+                f"victim exited (rc={victim.returncode}) before two "
+                f"checkpoints: {open(log).read()[-2000:]}")
+        check(time.perf_counter() - t0 < KILL_TIMEOUT_S,
+              "no checkpoints from the victim")
+        time.sleep(0.05)
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(timeout=30)
+    check(victim.returncode == -signal.SIGKILL,
+          f"victim rc {victim.returncode}")
+    out = dict(killed=len(S.list_checkpoints(ckpt_dir)),
+               victim_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    resume = subprocess.Popen(cmd + ["--resume"], env=env,
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+    procs.append(resume)
+    _, err = resume.communicate(timeout=KILL_TIMEOUT_S)
+    check(resume.returncode == 0, f"--resume failed: {err[-2000:]}")
+    out["resume_s"] = time.perf_counter() - t0
+    return out
+
+
+def start_service_kill(ckpt_dir: str) -> dict:
+    """``kill_and_resume`` on a thread, so that its processes run beside
+    the in-process services; returns its state for
+    ``finish_service_kill``, and ``stop_processes`` ends what is left."""
+    state = {"procs": []}
+
+    def pair():
+        try:
+            state.update(kill_and_resume(ckpt_dir, state["procs"]))
+        except BaseException as e:       # re-raised on the main thread
+            state["error"] = e
+
+    state["thread"] = threading.Thread(target=pair, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def stop_processes(state: dict) -> None:
+    for proc in state["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def finish_service_kill(state: dict, ckpt_dir: str) -> dict:
+    """Wait for the SIGKILL pair and hold the resumed CLI's final
+    checkpoint to an in-process run's; returns the in-process run's
+    launches."""
+    from repro_torch.checkpoint import latest_checkpoint, load_pytree
+    from repro_torch.launch import service as S
+    state["thread"].join(timeout=2 * KILL_TIMEOUT_S + 60)
+    check(not state["thread"].is_alive(), "the SIGKILL pair did not end")
+    if "error" in state:
+        raise state["error"]
+    tree, _ = load_pytree(latest_checkpoint(ckpt_dir))
+    trace = json.loads(str(tree["trace_json"]))
+    merges = [(round(x["t"], 9), x["edge"], x["cycle"], x["stale"])
+              for x in trace if x["kind"] == "merge"]
+
+    def build():
+        sim = S.default_service_sim(KILL_UES, KILL_EDGES,
+                                    max_staleness=SERVICE_STALENESS,
+                                    device="cuda")
+        waves = count_waves(sim)
+        return S.HFLService(sim, S.ServiceConfig(
+            segments=S._parse_segments(SERVICE_SEGMENTS),
+            max_staleness=SERVICE_STALENESS)), waves
+
+    ref, got = counted_run("SIGKILL's in-process run", build, KILL_EVENTS)
+    err = float(np.abs(np.asarray(tree["g"], np.float32) - ref.g).max())
+    print(f"  SIGKILL (beside the in-process runs above): the CLI killed at "
+          f"{state['killed']} checkpoints after {state['victim_s']:.3f} s, "
+          f"--resume finished {KILL_EVENTS} events in "
+          f"{state['resume_s']:.3f} s (process start included); resumed "
+          f"trace equal {merges == _merge_records(ref)}, "
+          f"{sum(x['kind'] == 'resume' for x in trace)} resume record; "
+          f"model max|err| {err!r}")
+    check(merges == _merge_records(ref), "SIGKILL: resumed trace differs")
+    check(any(x["kind"] == "resume" for x in trace), "no resume record")
+    check(err <= SERVICE_MODEL_TOL, f"SIGKILL: model max|err| {err!r}")
+    return got
+
+
+# ---------------------------------------------------------------------------
 
 
 def time_aggregation() -> int:
@@ -2396,16 +2931,21 @@ def time_rounds(repeats: int = 3) -> int:
     return 0
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0])
+    print(card_line())
     if argv == ["--time-aggregation"]:
         return time_aggregation()
     if argv == ["--time-rounds"]:
@@ -2432,6 +2972,7 @@ def main(argv=None) -> int:
     timing["segment_sum"] = time_segment_sum(*s_cases["stream_n8192_f1024"])
     time_slice_rule(*s_cases["stream_n8192_f1024"])
     time_segment_sum(*s_cases["lenet_n100_f44426"])
+    time_segment_sum(*s_cases["service_n20_f44426_m1"])
     del cases, s_cases
     errs["flash_attention"] = check_attention_against_plain()
     timing["flash_attention"] = time_attention(ATTN_SERVING)
@@ -2516,7 +3057,14 @@ def main(argv=None) -> int:
         launches[name] += faulty[name]
         errs[name] = max(errs[name], fault_errs[name])
 
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print("== phase 12: joint planning, a checkpointed async run")
+    joint = phase_joint(ue_data, test)
+    print("== phase 13: the always-on service on the card")
+    served13 = phase_service(sch, ue_data, test)
+    for name in KERNELS:
+        launches[name] += joint[name] + served13[name]
+
+    print(f"total {time.perf_counter() - t_start:.1f} s on {card_line()}")
     print("kernels: " + ", ".join(KERNELS))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", **meta, launches=launches[name],

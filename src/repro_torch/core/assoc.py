@@ -13,8 +13,9 @@ beyond-paper local searches ``refined`` and ``cluster_refined``):
 Copied from the JAX package's ``repro/core/assoc.py`` (numpy only): the
 strategies ``plan`` can name, the enumeration oracle ``exhaustive`` and
 the fault path's incremental re-association ``failover`` (with
-``orphans_of``).  ``refined(objective="joint")`` raises until
-``core/jointopt.py`` is ported (ROADMAP Queue 1 item 10).
+``orphans_of``).  ``refined``'s stochastic objectives
+(``"quantile_makespan"``, ``"joint"``) draw through ``core.stochastic`` on
+``device``.
 """
 from __future__ import annotations
 
@@ -315,9 +316,11 @@ def refined(problem: HFLProblem, a: float = 10.0,
       ``delay_key`` gives every candidate the same draws (common random
       numbers), so the descent is on a deterministic surface.
       ``device`` places an int ``delay_key``'s draws (``None``: the card).
-    * ``"joint"`` — the same with the per-cell bandwidth split
-      re-optimized per candidate; it raises ``NotImplementedError`` until
-      ``core/jointopt.py`` is ported (ROADMAP Queue 1 item 10).
+    * ``"joint"`` — ``"quantile_makespan"`` with the per-cell uplink
+      bandwidth split (``core.jointopt.optimize_bandwidth``, beyond-paper
+      arXiv 2007.03462) re-optimized for EVERY candidate association, so
+      chi and bandwidth co-optimize around a ``jointopt.solve_joint``
+      tuple's (a, b, max_staleness).
 
     ``incremental=True`` (default, latency objective only) evaluates each
     trial move by DELTA: a move only changes the two touched edges'
@@ -346,9 +349,33 @@ def refined(problem: HFLProblem, a: float = 10.0,
         return _refined_full_recompute(problem, a, max_moves, cap,
                                        score=score)
     if objective == "joint":
-        raise NotImplementedError(
-            "refined(objective='joint') needs core/jointopt.py, which is "
-            "not ported yet (ROADMAP Queue 1 item 10)")
+        # Co-optimize chi with the stochastic joint tuple
+        # (core.jointopt): every candidate association is scored on the
+        # q-quantile async makespan at the caller's (a, b,
+        # max_staleness) with the per-cell bandwidth split RE-OPTIMIZED
+        # for that candidate — association, iteration counts, staleness
+        # and bandwidth move together ((a, b, max_staleness) come from a
+        # prior ``jointopt.solve_joint`` pass; a fixed ``delay_key``
+        # keeps the descent surface deterministic, as above).
+        from repro_torch.core import jointopt
+        if delay_model is None:
+            from repro_torch.core import stochastic
+            delay_model = stochastic.scenario("urban_stragglers").model
+
+        def score(A):
+            frac = jointopt.optimize_bandwidth(problem, A, a)
+            saved = problem.bandwidth_frac
+            problem.bandwidth_frac = frac
+            try:
+                return delay.quantile_makespan(
+                    problem, A, a, b, rounds=rounds,
+                    max_staleness=max_staleness, model=delay_model,
+                    key=delay_key, num_trials=num_trials, q=q,
+                    device=device)
+            finally:
+                problem.bandwidth_frac = saved
+        return _refined_full_recompute(problem, a, max_moves, cap,
+                                       score=score)
     if objective != "latency":
         raise ValueError(f"unknown refined objective {objective!r}")
     if not incremental:

@@ -5,10 +5,10 @@ association chi (Alg. 3), the iteration counts (a*, b*) (Alg. 2 / direct
 convex solve) and the derived round structure.  The FL runtime
 (``repro_torch.fl``) executes any schedule.
 
-Copied from the JAX package's ``repro/core/schedule.py``: ``HFLSchedule``
-and ``plan``.  ``plan_joint`` waits for the stochastic joint optimizer and
-``plan_from_roofline`` for an H100 roofline bridge (ROADMAP Queue 1 items
-10 and 15).
+Copied from the JAX package's ``repro/core/schedule.py``: ``HFLSchedule``,
+``plan`` and ``plan_joint`` (the stochastic joint optimizer's pipeline;
+``device=`` places an int key's draws).  ``plan_from_roofline`` waits for
+an H100 roofline bridge (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -73,5 +73,44 @@ def plan(problem: HFLProblem, *, association: str = "proposed",
         problem=problem,
         meta={"association": association, "solver": solver,
               "a_relaxed": sol.a, "b_relaxed": sol.b,
+              "theta": bd["theta"], "mu": bd["mu"]},
+    )
+
+
+def plan_joint(problem: HFLProblem, *, scenario: str = "urban_stragglers",
+               association: str = "proposed", seed: int = 0,
+               q: float = 0.95, num_trials: int = 16, key=0, device=None,
+               **joint_kw) -> HFLSchedule:
+    """Stochastic joint pipeline: association, then ``jointopt.solve_joint``.
+
+    Beyond-paper counterpart of ``plan``: (a, b) come from the
+    q-quantile time-to-target under the named scenario jointly with
+    ``max_staleness`` and the per-cell bandwidth split, which is APPLIED
+    to ``problem.bandwidth_frac`` so the runtime's eq. 4/5 rates (and
+    every stochastic draw) price the optimized split.  The winning
+    staleness bound rides in ``meta["max_staleness"]`` —
+    ``HFLSimulator(..., mode="async", max_staleness=None)`` picks it up.
+    An int ``key`` draws on ``device`` (``None``: the card; the
+    ``"deterministic"`` scenario draws nothing).
+    """
+    from repro_torch.core import jointopt
+
+    assoc = assoc_lib.STRATEGIES[association](problem, seed=seed)
+    sol = jointopt.solve_joint(problem, assoc, model=scenario, q=q,
+                               num_trials=num_trials, key=key, device=device,
+                               **joint_kw)
+    if sol.bandwidth_frac is not None:
+        problem.bandwidth_frac = sol.bandwidth_frac
+    bd = delay.objective_breakdown(problem, assoc, sol.a, sol.b)
+    return HFLSchedule(
+        a=sol.a, b=sol.b,
+        rounds=max(1, int(sol.rounds)),
+        assoc=assoc, total_delay=bd["total"],
+        cloud_round_time=bd["T"], edge_round_time=bd["tau"],
+        problem=problem,
+        meta={"association": association, "solver": "joint",
+              "scenario": scenario, "max_staleness": sol.max_staleness,
+              "objective_q": sol.q, "objective": sol.objective,
+              "bandwidth": sol.bandwidth,
               "theta": bd["theta"], "mu": bd["mu"]},
     )

@@ -14,7 +14,10 @@ mesh of ranks too.
   edge: uniform, weight-proportional, Pareto) and the mass-preserving
   cohort reweighting ``participation_weights``.
 * ``sim``       — simulation backend over stacked UE replicas with a
-  simulated wall clock driven by the delay model (Figs. 4/6).
+  simulated wall clock driven by the delay model (Figs. 4/6), with the
+  async replay hooks the always-on service drives
+  (``repro_torch.launch.service``) and a ``params`` setter for restoring
+  checkpointed replicas.
 """
 from repro_torch.fl.aggregate import (StreamingEdgeAccumulator,
                                       flat_cloud_aggregate,

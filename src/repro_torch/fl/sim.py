@@ -265,6 +265,19 @@ class HFLSimulator:
                           for i in range(0, len(parts), nm)], 0)
         return self._slayout.unravel(full)
 
+    @params.setter
+    def params(self, stacked: dict) -> None:
+        """Replace the stacked UE replicas (tensors or arrays, such as a
+        checkpoint's): ravelled into a fresh flat buffer on this
+        simulator's device, since local GD writes the buffer in place."""
+        self._single_device("the params setter")
+        flat = self._layout.ravel(_stack_to(stacked, self.device))
+        if flat.shape != self._flat.shape:
+            raise ValueError(f"stacked params ravel to {tuple(flat.shape)}, "
+                             f"not this simulator's "
+                             f"{tuple(self._flat.shape)}")
+        self._flat = flat
+
     @property
     def _data_group(self):
         return None if self.mesh is None else self.mesh.data_group
@@ -553,11 +566,17 @@ class HFLSimulator:
         w = self.weights.cpu().numpy().astype(np.float64)
         return float(w[self.group_ids.cpu().numpy() == int(m)].sum())
 
+    def device_rows(self, idx) -> torch.Tensor:
+        """A copy of the given flat-buffer rows on the simulator's device:
+        (len(idx), F) fp32 (the service's streaming merge folds them there
+        chunk by chunk)."""
+        self._single_device("device_rows")
+        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        return self._flat[idx]
+
     def hot_rows(self, idx) -> np.ndarray:
         """Host copy of the given flat-buffer rows: (len(idx), F) fp32."""
-        self._single_device("hot_rows")
-        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        return self._flat[idx].cpu().numpy()
+        return self.device_rows(idx).cpu().numpy()
 
     def global_from_vector(self, g) -> dict:
         """Unravel a cloud vector into the global parameter dict."""
@@ -688,3 +707,10 @@ def _stack(params: dict, n: int, device) -> dict:
                 torch.as_tensor(v, device=device).unsqueeze(0)
                 .expand((n,) + tuple(v.shape)))
             for k, v in params.items()}
+
+
+def _stack_to(stacked: dict, device) -> dict:
+    """A nested dict of tensors or arrays as tensors on ``device``."""
+    return {k: (_stack_to(v, device) if isinstance(v, dict) else
+                torch.as_tensor(v, device=device))
+            for k, v in stacked.items()}

@@ -103,11 +103,19 @@ def _plain(trace):
     return [(kind, dataclasses.astuple(ev)) for kind, ev in trace]
 
 
-def test_refined_stochastic_objectives_raise():
-    """Of the stochastic objectives only ``"joint"`` is left to port."""
+def test_refined_stochastic_objectives_raise(monkeypatch):
+    """The stochastic objectives draw on a device: an int key with no
+    ``device`` raises without a card, and ``device="cpu"`` runs."""
+    import torch
     p = TProblem(num_edges=2, num_ues=6, seed=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_assoc.refined(p, objective="joint")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for objective in ("quantile_makespan", "joint"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_assoc.refined(p, objective=objective, num_trials=2,
+                            max_moves=1)
+        A = t_assoc.refined(p, objective=objective, num_trials=2,
+                            max_moves=1, device="cpu")
+        assert (A.sum(1) == 1).all()
 
 
 def _bytes_equal(a, b):
