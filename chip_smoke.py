@@ -148,9 +148,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rerun with ``--resume``: its final checkpoint has an in-process run's
    trace and model (within 1e-6).  Each run's
    ``segment_aggregate`` launches are ``b*`` a departure wave.
-14. Kernel records as JSON (``launches``: each path's count, read around
+14. The rest of multi-device, with cuDNN's deterministic algorithms: one
+   ``run_ranks`` spawn of 4 gloo ranks on the one card.  On a 4 x 1 data
+   mesh (phase 3's 5 edges pack 2 + 1 + 1 + 1: 40-row slabs) (a) phase
+   5's async run (timeline and clock = phase 5's, ``b*``
+   ``segment_aggregate`` launches a wave a rank), (d) each rank's slab
+   after it folded through ``StreamingEdgeAccumulator`` in 32-row chunks
+   (``segment_sum`` once a chunk, within 1e-5 of K1 on the slab and on
+   distinct random rows), (b) phase 11's deadline+failover and sampled
+   sync runs (clock and masks = phase 11's, ``weighted_mean`` once a
+   rank a round with a survivor, no pad row sampled), (c) phase 13's
+   streamed service for 10 events (trace = phase 13's record for record,
+   ``segment_sum`` once a merge row's chunk; rank 0 checkpoints at event
+   5, fresh mesh services resume it to the uninterrupted run's trace and
+   model within 1e-6); then on a 2 x 2 ('edge', 'ue') mesh (e) one
+   ``make_hfl_cloud_round`` of full-width LeNet at (a*, b*), one of phase
+   3's UEs a rank, with no launch.  Each model is held to its
+   single-device run on the card by phase 9's rule (the stacked loop of
+   ``clients.gd_local_steps`` and ``stacked_weighted_average`` for (e));
+   the references not run by phases 5, 11 and 13 and the spread runs run
+   in this process while the ranks run.
+15. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
-   and, in phase 9, over the ranks), then the result line.
+   and, in phases 9 and 14, over the ranks), then the result line.
 
 Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
 ``nvidia-smi``.  Without a card it exits 1 before printing any result.
@@ -301,6 +321,21 @@ STREAM_MERGE_TOL = 1e-5       # streamed against direct merge rows, as there
 SERVICE_CHUNK_SEED = 3       # distinct rows for K4 at the service's chunks
 KILL_UES, KILL_EDGES, KILL_EVENTS = 24, 4, 160
 KILL_TIMEOUT_S = 300
+# Phase 14: the rest of multi-device, 4 gloo ranks on the one card.  A 4 x 1
+# data mesh: phase 3's 5 edges of 20 UEs pack 2 + 1 + 1 + 1, so 40-row
+# slabs (the last three a 20-row edge and 20 pad rows); its async,
+# faults, sampling and service runs are phases 5, 11 and 13's.  Then a
+# 2 x 2 ('edge', 'ue') mesh for the SPMD round, one of phase 3's UEs a
+# rank.  The single-device references and their spreads run in this
+# process while the ranks run.
+MESH_RANKS = 4
+MESH_ROWS = 40
+MESH_TIMEOUT_S = 600
+MESH_CKPT_AT = 5                     # the service's checkpoint, of 10 events
+MESH_STREAM_CHUNK = 32
+MESH_STREAM_SEED = 5
+MESH_SPREAD_SEEDS = SPREAD_SEEDS[:2]  # two moves a spread
+FL_MESH = (2, 2)
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -1360,17 +1395,24 @@ def main_path_inputs():
     return sch, plan_s, ue_data, test
 
 
-def make_sim(sch, ue_data, device, noise=0.0, noise_seed=1, **kw):
+def lenet_params(device, noise=0.0, noise_seed=1) -> dict:
+    """Full-width LeNet from seed 0 on ``device``, each parameter moved by
+    ``noise`` relative (a draw of ``noise_seed``) if asked."""
     init = lenet_init(torch.Generator().manual_seed(0), LeNetConfig(),
                       device="cpu")
     if noise:
         gen = torch.Generator().manual_seed(noise_seed)
         init = {k: {kk: v * (1 + noise * torch.randn(v.shape, generator=gen))
                     for kk, v in layer.items()} for k, layer in init.items()}
-    init = {k: {kk: v.to(device) for kk, v in layer.items()}
+    return {k: {kk: v.to(device) for kk, v in layer.items()}
             for k, layer in init.items()}
-    return HFLSimulator(sch, lenet_loss, init, ue_data, lr=LR,
-                        samples_per_ue=SAMPLES_PER_UE, device=device, **kw)
+
+
+def make_sim(sch, ue_data, device, noise=0.0, noise_seed=1, **kw):
+    return HFLSimulator(sch, lenet_loss, lenet_params(device, noise,
+                                                      noise_seed),
+                        ue_data, lr=LR, samples_per_ue=SAMPLES_PER_UE,
+                        device=device, **kw)
 
 
 def phase_main_path(sch, plan_s, ue_data, test):
@@ -1502,7 +1544,8 @@ def departure_waves(timeline) -> int:
     return waves
 
 
-def phase_async(sch, ue_data, test, card_sync, spread) -> None:
+def phase_async(sch, ue_data, test, card_sync, spread) -> dict:
+    """Phase 5; returns its run's trace and clock (phase 14's timeline)."""
     sim = make_sim(sch, ue_data, "cuda", mode="async",
                    max_staleness=ASYNC_STALENESS)
     torch.cuda.synchronize()
@@ -1539,6 +1582,7 @@ def phase_async(sch, ue_data, test, card_sync, spread) -> None:
     check(diff <= SENSITIVITY_FACTOR * spread,
           f"async barrier vs sync {diff:.3e} > {SENSITIVITY_FACTOR} x CPU "
           f"spread {spread:.3e}")
+    return dict(trace=tl.trace, times=res.times)
 
 
 def stream_chunk(i: int, rows: int) -> torch.Tensor:
@@ -2143,9 +2187,20 @@ def _phase_stochastic(sch, ue_data, test, main_clock) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_faults(sch, ue_data, test) -> dict:
+def fault_model():
+    """Phase 11's fault model: the processes of the ue_churn,
+    lossy_uplink and edge_outage scenarios."""
+    from repro_torch.core import faults as F
+    return F.FaultModel(dropout=F.MarkovChurn(p_off=0.15, p_on=0.45),
+                        loss=F.UplinkLoss(rate=0.25, backoff=0.05),
+                        outage=F.EdgeOutage(rate=0.05, repair_cycles=6.0))
+
+
+def phase_faults(sch, ue_data, test) -> tuple:
     """Phase 11; returns each kernel's launches over its fault and sampled
-    runs, and K1's and K2's largest error under fault weights.  cuDNN's
+    runs, K1's and K2's largest error under fault weights, and its
+    deadline+failover and sampled sync runs (clock, masks, final params:
+    phase 14's references).  cuDNN's
     deterministic algorithms make the bit-for-bit null routing a check of
     the routing, not of cuDNN."""
     torch.backends.cudnn.deterministic = True
@@ -2166,9 +2221,7 @@ def _phase_faults(sch, ue_data, test) -> dict:
     from repro_torch.fl.sampling import expected_cohort, make_sampler
     prob, assoc, a, b = sch.problem, sch.assoc, sch.a, sch.b
     M = sch.num_edges
-    fm = F.FaultModel(dropout=F.MarkovChurn(p_off=0.15, p_on=0.45),
-                      loss=F.UplinkLoss(rate=0.25, backoff=0.05),
-                      outage=F.EdgeOutage(rate=0.05, repair_cycles=6.0))
+    fm = fault_model()
     model = scenario(FAULT_SCENARIO).model
     policies = {"wait_for_all": F.wait_for_all_policy(),
                 "deadline_failover": F.deadline_failover_policy()}
@@ -2216,7 +2269,7 @@ def _phase_faults(sch, ue_data, test) -> dict:
         stats[name] = card
 
     launches = {name: 0 for name in KERNELS}
-    finals = {}
+    finals, runs = {}, {}
     for name, pol in policies.items():
         sim = make_sim(sch, ue_data, "cuda", delay_model=model,
                        fault_model=fm, fault_policy=pol,
@@ -2256,6 +2309,8 @@ def _phase_faults(sch, ue_data, test) -> dict:
             launches[kname] += got[kname]
         if name == "deadline_failover":
             fault_sim = sim
+            runs["faulty"] = dict(run_summary(res), times=res.times,
+                                  masks=kept)
     print(f"  final clock: deadline_failover {finals['deadline_failover']!r}"
           f" s, wait_for_all {finals['wait_for_all']!r} s")
     check(finals["deadline_failover"] <= finals["wait_for_all"],
@@ -2324,6 +2379,7 @@ def _phase_faults(sch, ue_data, test) -> dict:
               for t in tree_leaves(res.final_params)), "sampled: finite")
     for kname in KERNELS:
         launches[kname] += got[kname]
+    runs["sampled"] = dict(run_summary(res), times=res.times, masks=part)
 
     dlf = policies["deadline_failover"]
     asim = make_sim(sch, ue_data, "cuda", mode="async",
@@ -2389,7 +2445,7 @@ def _phase_faults(sch, ue_data, test) -> dict:
     print("one more sync round, warm, in turns: " + "; ".join(
         f"{name} {', '.join(f'{t:.3f}' for t in ts)} s"
         for name, ts in warm.items()))
-    return launches, errs
+    return launches, errs, runs
 
 
 # ---------------------------------------------------------------------------
@@ -2534,9 +2590,10 @@ def _phase_joint(ue_data, test) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_service(sch, ue_data, test) -> dict:
+def phase_service(sch, ue_data, test) -> tuple:
     """Phase 13; returns each kernel's launches over its in-process
-    services.  The SIGKILL pair's processes start first and run beside
+    services, and its streamed service's trace and model (phase 14's
+    reference).  The SIGKILL pair's processes start first and run beside
     them.  cuDNN's deterministic algorithms make the resumed run's
     comparison a check of the checkpoint, not of cuDNN."""
     torch.backends.cudnn.deterministic = True
@@ -2563,9 +2620,9 @@ def count_waves(sim) -> list:
     return waves
 
 
-def _merge_records(svc) -> list:
+def _merge_records(trace) -> list:
     return [(round(r["t"], 9), r["edge"], r["cycle"], r["stale"])
-            for r in svc.trace if r["kind"] == "merge"]
+            for r in trace if r["kind"] == "merge"]
 
 
 def counted_run(label: str, build, events: int, before=None,
@@ -2600,7 +2657,7 @@ def counted_run(label: str, build, events: int, before=None,
     return svc, got
 
 
-def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> dict:
+def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> tuple:
     # imported here, so that the script still imports in an older tree
     from repro_torch.core import scenario
     from repro_torch.launch import service as S
@@ -2652,7 +2709,7 @@ def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> dict:
 
         resumed = run("resumed", SERVICE_EVENTS, before=restore, **ckpt)
         err = float(np.abs(resumed.g - full.g).max())
-        same = _merge_records(resumed) == _merge_records(full)
+        same = _merge_records(resumed.trace) == _merge_records(full.trace)
         print(f"  resumed from {os.path.basename(src[0])} at event "
               f"{SERVICE_RESUME_AT}: trace equal {same}; model max|err| "
               f"{err!r}")
@@ -2696,17 +2753,17 @@ def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> dict:
     stream = run("streaming merge", SERVICE_STREAM_EVENTS, before=streamed,
                  extra=chunk_launches,
                  merge_stream_chunk=SERVICE_STREAM_CHUNK)
-    prefix = _merge_records(full)[:len(_merge_records(stream))]
+    prefix = _merge_records(full.trace)[:len(_merge_records(stream.trace))]
     print(f"  streaming merge (chunks of {SERVICE_STREAM_CHUNK}): "
           f"{len(rows)} merge rows, {len(chunks)} chunks; streamed vs "
           f"direct row max|err| {max(stream_errs)!r}; trace = the "
           f"uninterrupted run's first merges: "
-          f"{_merge_records(stream) == prefix}")
+          f"{_merge_records(stream.trace) == prefix}")
     check(len(chunks) == chunk_launches()["segment_sum"],
           f"{len(chunks)} chunks folded, {chunk_launches()} expected")
     check(max(stream_errs) <= STREAM_MERGE_TOL,
           f"streamed rows vs direct {max(stream_errs)!r}")
-    check(_merge_records(stream) == prefix,
+    check(_merge_records(stream.trace) == prefix,
           "two runs of one configuration gave different traces")
     # K4 at the chunks the service gave it, against its plain version:
     # on the path's own rows, and on distinct random rows of the same
@@ -2751,7 +2808,7 @@ def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> dict:
     for name in KERNELS:
         launches[name] += killed[name]
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, dict(trace=stream.trace, g=stream.g)
 
 
 def kill_args(ckpt_dir: str) -> list:
@@ -2839,8 +2896,7 @@ def finish_service_kill(state: dict, ckpt_dir: str) -> dict:
         raise state["error"]
     tree, _ = load_pytree(latest_checkpoint(ckpt_dir))
     trace = json.loads(str(tree["trace_json"]))
-    merges = [(round(x["t"], 9), x["edge"], x["cycle"], x["stale"])
-              for x in trace if x["kind"] == "merge"]
+    merges = _merge_records(trace)
 
     def build():
         sim = S.default_service_sim(KILL_UES, KILL_EDGES,
@@ -2857,13 +2913,494 @@ def finish_service_kill(state: dict, ckpt_dir: str) -> dict:
           f"{state['killed']} checkpoints after {state['victim_s']:.3f} s, "
           f"--resume finished {KILL_EVENTS} events in "
           f"{state['resume_s']:.3f} s (process start included); resumed "
-          f"trace equal {merges == _merge_records(ref)}, "
+          f"trace equal {merges == _merge_records(ref.trace)}, "
           f"{sum(x['kind'] == 'resume' for x in trace)} resume record; "
           f"model max|err| {err!r}")
-    check(merges == _merge_records(ref), "SIGKILL: resumed trace differs")
+    check(merges == _merge_records(ref.trace),
+          "SIGKILL: resumed trace differs")
     check(any(x["kind"] == "resume" for x in trace), "no resume record")
     check(err <= SERVICE_MODEL_TOL, f"SIGKILL: model max|err| {err!r}")
     return got
+
+
+# ---------------------------------------------------------------------------
+# Phase 14
+# ---------------------------------------------------------------------------
+
+
+def count_merge_rows(svc) -> list:
+    """Record the edge of every merge row ``svc`` reads into the returned
+    list."""
+    edges, read = [], svc._merge_row
+
+    def counted(m):
+        edges.append(m)
+        return read(m)
+
+    svc._merge_row = counted
+    return edges
+
+
+def spmd_inputs(sch, ue_data) -> tuple:
+    """Phase 14's SPMD fleet: the first two UEs of edges 0 and 1 (rank r
+    is UE r % 2 of edge r // 2), each resampled to SAMPLES_PER_UE samples
+    as the simulator resamples, and their D_n."""
+    e, u = FL_MESH
+    gids = sch.assoc.argmax(1)
+    idx = np.concatenate([np.flatnonzero(gids == m)[:u] for m in range(e)])
+    rng = np.random.default_rng(0)
+    picks = []
+    for i in idx:
+        n = len(ue_data[i]["labels"])
+        picks.append(rng.choice(n, size=SAMPLES_PER_UE,
+                                replace=n < SAMPLES_PER_UE))
+    batches = {k: np.stack([ue_data[i][k][ix] for i, ix in zip(idx, picks)])
+               for k in ue_data[0]}
+    return batches, sch.problem.samples[idx].astype(np.float32)
+
+
+def spmd_loop(sch, ue_data, noise=0.0, noise_seed=1) -> list:
+    """The SPMD round's fleet on one card as a stacked loop: b* times a*
+    GD steps (``clients.gd_local_steps``) and the edge means, then the
+    cloud mean (``stacked_weighted_average``: K1, K2)."""
+    from repro_torch.fl import clients, spmd
+    from repro_torch.fl.aggregate import stacked_weighted_average
+    from repro_torch.fl.flatten import FlatLayout
+    e, u = FL_MESH
+    batches, weights = spmd_inputs(sch, ue_data)
+    batches = {k: torch.as_tensor(v, device="cuda")
+               for k, v in batches.items()}
+    w = torch.as_tensor(weights, device="cuda")
+    gid = torch.arange(e, device="cuda").repeat_interleave(u)
+    stacked = spmd.stack_for_mesh(lenet_params("cuda", noise, noise_seed),
+                                  e, u)
+    layout = FlatLayout.of(stacked)
+    p = layout.unravel(layout.ravel(stacked))
+    gd = clients.gd_local_steps(lenet_loss, sch.a, LR)
+    for _ in range(sch.b):
+        gd(p, batches)
+        p = stacked_weighted_average(p, w, group_ids=gid, num_groups=e)
+    return [t.cpu() for t in tree_leaves(stacked_weighted_average(p, w))]
+
+
+def stream_slab(sim) -> dict:
+    """Part (d) on a rank: its slab folded through
+    ``StreamingEdgeAccumulator`` in MESH_STREAM_CHUNK-row chunks (counted),
+    held to K1 on the same slab, and likewise distinct random rows of its
+    shape under its weights (at this point an edge's rows all hold one
+    mean)."""
+    slab, w, g = sim._flat, sim._local_weights, sim._local_gids
+    M = sim.schedule.num_edges
+    acc = StreamingEdgeAccumulator(M, slab.shape[1], device=slab.device)
+
+    def fold(x):
+        acc.reset()
+        for s in range(0, x.shape[0], MESH_STREAM_CHUNK):
+            stop = s + MESH_STREAM_CHUNK
+            acc.add(x[s:stop], w[s:stop], g[s:stop])
+        return acc.scatter(g)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    streamed = fold(slab)
+    torch.cuda.synchronize()
+    out = dict(wall=time.perf_counter() - t0, launches=counts(),
+               chunks=-(-slab.shape[0] // MESH_STREAM_CHUNK))
+    gen = torch.Generator(device=slab.device).manual_seed(
+        MESH_STREAM_SEED + sim.mesh.rank)
+    for name, x in (("slab", slab),
+                    ("distinct", torch.randn(slab.shape, generator=gen,
+                                             device=slab.device))):
+        got = streamed if name == "slab" else fold(x)
+        ref = ha.segment_aggregate(x, w, g, M)
+        out[name] = dict(err=_max_err(got, ref),
+                         scale=float(ref.abs().max()),
+                         finite=bool(torch.isfinite(got).all()))
+    return out
+
+
+def mesh_rank(sch, ue_data, test, ckpt_dir) -> dict:
+    """One rank of phase 14, run by ``run_ranks`` (``spawn`` imports this
+    script in each rank; ``main`` does not run there)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import faults as F
+    from repro_torch.core import scenario
+    from repro_torch.fl import spmd
+    from repro_torch.fl.sampling import make_sampler
+    from repro_torch.launch import service as S
+    from repro_torch.launch.mesh import make_fl_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True       # as phase_mesh
+    torch.set_num_threads(2)
+    timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
+    mesh = make_agg_mesh(1, MESH_RANKS, timeout=timeout)
+    out = dict(rank=mesh.rank, device=str(mesh.device))
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0, counts()
+
+    # (a) phase 5's async run on the mesh
+    sim = make_sim(sch, ue_data, mesh.device, mesh=mesh, mode="async",
+                   max_staleness=ASYNC_STALENESS)
+    res, wall, launched = counted(lambda: sim.run(test, rounds=ROUNDS))
+    tl = res.timeline
+    out["async"] = dict(run_summary(res), trace=tl.trace, times=res.times,
+                        wall=wall, launches=launched,
+                        waves=departure_waves(tl), updates=len(tl.updates),
+                        slab=tuple(sim._flat.shape))
+    # (d) the slab after (a), streamed
+    out["stream"] = stream_slab(sim)
+    del sim
+
+    # (b) phase 11's deadline+failover and sampled sync runs on the mesh
+    for name, kw in (
+            ("faulty", dict(delay_model=scenario(FAULT_SCENARIO).model,
+                            fault_model=fault_model(),
+                            fault_policy=F.deadline_failover_policy(),
+                            fault_seed=FAULT_SEED)),
+            ("sampled", dict(sampler=make_sampler(SAMPLER, SAMPLE_RATE),
+                             sample_seed=FAULT_SEED))):
+        fsim = make_sim(sch, ue_data, mesh.device, mesh=mesh, **kw)
+        res, wall, launched = counted(
+            lambda: fsim.run(test, rounds=FAULT_ROUNDS))
+        out[name] = dict(run_summary(res), times=res.times, wall=wall,
+                         launches=launched,
+                         masks=fsim._sync_plan(FAULT_ROUNDS)[1])
+        del fsim
+
+    # (c) phase 13's streamed service on the mesh, checkpointed by rank 0
+    # at event MESH_CKPT_AT, then resumed on fresh mesh services
+    cfg = S.ServiceConfig(segments=S._parse_segments(SERVICE_SEGMENTS),
+                          max_staleness=SERVICE_STALENESS,
+                          merge_stream_chunk=SERVICE_STREAM_CHUNK,
+                          ckpt_dir=ckpt_dir, ckpt_every=MESH_CKPT_AT)
+
+    def service(before=None) -> dict:
+        def build():
+            ssim = make_sim(sch, ue_data, mesh.device, mesh=mesh,
+                            mode="async", max_staleness=SERVICE_STALENESS)
+            waves = count_waves(ssim)
+            svc = S.HFLService(ssim, cfg)
+            rows = count_merge_rows(svc)
+            start = before(svc) if before is not None else 0
+            svc.run(SERVICE_STREAM_EVENTS)
+            return svc, waves[0], rows, start
+
+        (svc, waves, rows, start), wall, launched = counted(build)
+        members = np.bincount(svc._gids[svc._w > 0])
+        return dict(trace=svc.trace, g=svc.g, wall=wall, launches=launched,
+                    start=start, events=svc.events_done, want=expect(
+                        segment_aggregate=sch.b * waves,
+                        segment_sum=sum(-(-int(members[m]) //
+                                          SERVICE_STREAM_CHUNK)
+                                        for m in rows)))
+
+    out["service"] = service()
+    if mesh.rank == 0:               # a crash after the first checkpoint
+        for path in S.list_checkpoints(ckpt_dir)[1:]:
+            os.remove(path)
+    dist.barrier()
+    src = []
+
+    def restore(svc):
+        src.append(os.path.basename(svc.restore_latest()))
+        return svc.events_done
+
+    out["resumed"] = dict(service(before=restore), src=src[0])
+
+    # (e) the SPMD round on a 2 x 2 ('edge', 'ue') mesh, one UE a rank
+    fl = make_fl_mesh(*FL_MESH, timeout=timeout)
+    batches, weights = spmd_inputs(sch, ue_data)
+    stacked = spmd.stack_for_mesh(lenet_params("cpu"), *FL_MESH)
+    fn = spmd.make_hfl_cloud_round(lenet_loss, fl, a=sch.a, b=sch.b, lr=LR)
+    got, wall, launched = counted(lambda: fn(
+        fl.local(stacked), fl.local(batches), fl.local(weights)))
+    out["spmd"] = dict(final=[t.cpu() for t in tree_leaves(got)], wall=wall,
+                       launches=launched, coords=(fl.edge_index, fl.ue_index))
+    return out
+
+
+def _spread(base: dict, moved: list, keys) -> dict:
+    """The largest distance of ``moved`` summaries from ``base``, by key."""
+    out = {}
+    for key in keys:
+        if key == "final":
+            out[key] = max(max(_max_err(a, b) for a, b in
+                               zip(m["final"], base["final"]))
+                           for m in moved)
+        else:
+            out[key] = max(float(np.abs(m[key] - base[key]).max())
+                           for m in moved)
+    return out
+
+
+def mesh_references(sch, ue_data, test, refs) -> dict:
+    """Phase 14's single-device references not already run by phases 5,
+    11 and 13 (phase 5 took cuDNN's default algorithms: its async run
+    again with the deterministic ones), and the spread of each reference
+    under a SENSITIVITY_NOISE init move."""
+    from repro_torch.core import faults as F
+    from repro_torch.core import scenario
+    from repro_torch.fl.sampling import make_sampler
+    from repro_torch.launch import service as S
+    t0 = time.perf_counter()
+    out = {}
+
+    def async_run(**kw):
+        return run_summary(make_sim(
+            sch, ue_data, "cuda", mode="async",
+            max_staleness=ASYNC_STALENESS, **kw).run(test, rounds=ROUNDS))
+
+    base = async_run()
+    out["async"] = (base, _spread(
+        base, [async_run(noise=SENSITIVITY_NOISE, noise_seed=seed)
+               for seed in MESH_SPREAD_SEEDS],
+        ("final", "test_loss", "train_loss")))
+    for name, kw in (
+            ("faulty", dict(delay_model=scenario(FAULT_SCENARIO).model,
+                            fault_model=fault_model(),
+                            fault_policy=F.deadline_failover_policy(),
+                            fault_seed=FAULT_SEED)),
+            ("sampled", dict(sampler=make_sampler(SAMPLER, SAMPLE_RATE),
+                             sample_seed=FAULT_SEED))):
+        out[name] = _spread(refs[name], [run_summary(make_sim(
+            sch, ue_data, "cuda", noise=SENSITIVITY_NOISE, noise_seed=seed,
+            **kw).run(test, rounds=FAULT_ROUNDS))
+            for seed in MESH_SPREAD_SEEDS], ("final",))["final"]
+    moved = []
+    for seed in MESH_SPREAD_SEEDS:
+        svc = S.HFLService(
+            make_sim(sch, ue_data, "cuda", noise=SENSITIVITY_NOISE,
+                     noise_seed=seed, mode="async",
+                     max_staleness=SERVICE_STALENESS),
+            S.ServiceConfig(segments=S._parse_segments(SERVICE_SEGMENTS),
+                            max_staleness=SERVICE_STALENESS,
+                            merge_stream_chunk=SERVICE_STREAM_CHUNK))
+        svc.run(SERVICE_STREAM_EVENTS)
+        moved.append(float(np.abs(svc.g - refs["service"]["g"]).max()))
+    out["service"] = max(moved)
+    base = spmd_loop(sch, ue_data)
+    out["spmd"] = (base, max(
+        max(_max_err(a, b) for a, b in zip(
+            spmd_loop(sch, ue_data, SENSITIVITY_NOISE, seed), base))
+        for seed in SPREAD_SEEDS))
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh(sch, ue_data, test, refs) -> dict:
+    """Phase 14; returns each kernel's launches summed over the ranks and
+    their paths.  cuDNN's deterministic algorithms in the ranks and in the
+    references, as phase 9."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_mesh(sch, ue_data, test, refs)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def hold_model(label: str, diff: float, spread: float) -> None:
+    print(f"  {label}: max|diff| {diff:.3e}; spread under a "
+          f"{SENSITIVITY_NOISE:g} init move {spread:.3e} (ratio "
+          f"{diff / max(spread, 1e-30):.2f})")
+    check(spread > 0, f"{label}: the moved run moved")
+    check(diff <= SENSITIVITY_FACTOR * spread,
+          f"{label}: {diff:.3e} > {SENSITIVITY_FACTOR} x spread "
+          f"{spread:.3e}")
+
+
+def _phase_mesh(sch, ue_data, test, refs) -> dict:
+    from repro_torch.fl.flatten import _pack_groups
+    t_phase = time.perf_counter()
+    b = sch.b
+    gids = sch.assoc.argmax(1)
+    perm, n_padded = _pack_groups(gids, MESH_RANKS)
+    per = n_padded // MESH_RANKS
+    inv = np.empty(gids.size, np.int64)
+    inv[perm[perm >= 0]] = np.flatnonzero(perm >= 0)
+    slabs = [perm[i * per:(i + 1) * per] for i in range(MESH_RANKS)]
+    print(f"_pack_groups({MESH_RANKS} shards): {n_padded} padded rows, "
+          f"{per} a rank; edges a rank "
+          f"{[sorted(set(gids[x[x >= 0]].tolist())) for x in slabs]}, pad "
+          f"rows a rank {[int((x < 0).sum()) for x in slabs]}")
+    check(per == MESH_ROWS, f"{per} rows a rank, not {MESH_ROWS}")
+
+    torch.cuda.empty_cache()        # the ranks share the card with us
+    state = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def spawn():
+            t0 = time.perf_counter()
+            try:
+                state["ranks"] = run_ranks(
+                    mesh_rank, MESH_RANKS, sch, ue_data, test, tmp,
+                    device="cuda", timeout_s=MESH_TIMEOUT_S)
+            except BaseException as e:   # re-raised on the main thread
+                state["error"] = e
+            state["wall"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=spawn, daemon=True)
+        thread.start()
+        ref = mesh_references(sch, ue_data, test, refs)
+        thread.join(timeout=MESH_TIMEOUT_S + 60)
+        check(not thread.is_alive(), "the ranks did not end")
+    if "error" in state:
+        raise state["error"]
+    ranks = state["ranks"]
+    print(f"{MESH_RANKS} ranks (gloo, all on {ranks[0]['device']}) on a "
+          f"{MESH_RANKS} x 1 mesh, then a {FL_MESH[0]} x {FL_MESH[1]} "
+          f"('edge', 'ue') mesh: {state['wall']:.1f} s from spawn to "
+          f"results; the single-device references and spreads beside them "
+          f"{ref['wall']:.1f} s")
+    n_test = len(test["labels"])
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(got):
+        for name in KERNELS:
+            launches[name] += got[name]
+
+    def agree(part, keys=("final",)):
+        first = ranks[0][part]
+        for r in ranks[1:]:
+            for key in keys:
+                if key == "final":
+                    same = all(torch.equal(x, y) for x, y in
+                               zip(first[key], r[part][key]))
+                else:
+                    same = np.array_equal(first[key], r[part][key])
+                check(same, f"({part}) rank {r['rank']}'s {key} differs "
+                            f"from rank 0's")
+
+    # (a) async on the mesh
+    base, spread = ref["async"]
+    for r in ranks:
+        a = r["async"]
+        print(f"  (a) rank {r['rank']}: slab {a['slab']} fp32; "
+              f"{a['updates']} updates, {a['waves']} waves in "
+              f"{a['wall']:.3f} s ({a['wall'] / a['updates']:.3f} s an "
+              f"update, first call included); launches {a['launches']}")
+        check(a["slab"] == (MESH_ROWS, LENET_PARAMS),
+              f"rank {r['rank']}: slab {a['slab']}")
+        check(a["trace"] == refs["async"]["trace"]
+              and np.array_equal(a["times"], refs["async"]["times"]),
+              f"(a) rank {r['rank']}: timeline or clock != phase 5's")
+        check(a["launches"] == expect(segment_aggregate=b * a["waves"]),
+              f"(a) rank {r['rank']}: launches {a['launches']}")
+        add(a["launches"])
+    agree("async", ("final", "test_loss", "train_loss", "test_acc"))
+    first = ranks[0]["async"]
+    hold_model("(a) async mesh vs one card, params", max(
+        _max_err(x, y) for x, y in zip(first["final"], base["final"])),
+        spread["final"])
+    for key in ("test_loss", "train_loss"):
+        hold_model(f"(a) async mesh vs one card, {key}", float(
+            np.abs(first[key] - base[key]).max()), spread[key])
+    # float32 accuracies: one sample apart is 1/n_test up to rounding
+    acc = float(np.abs(first["test_acc"] - base["test_acc"]).max())
+    check(round(acc * n_test) <= 1, f"(a) accuracy {acc} apart, more than "
+                                    f"one of {n_test} test samples")
+
+    # (d) the slab streamed
+    for r in ranks:
+        d = r["stream"]
+        print(f"  (d) rank {r['rank']}: slab folded in {d['chunks']} chunks "
+              f"of {MESH_STREAM_CHUNK} in {d['wall'] * 1e3:.3f} ms; "
+              f"launches {d['launches']}; against K1 on the slab max|err| "
+              f"{d['slab']['err']:.3e} (scale {d['slab']['scale']:.3e}), on "
+              f"distinct rows {d['distinct']['err']:.3e} (scale "
+              f"{d['distinct']['scale']:.3e})")
+        check(d["launches"] == expect(segment_sum=d["chunks"]),
+              f"(d) rank {r['rank']}: launches {d['launches']}")
+        for case in ("slab", "distinct"):
+            check(d[case]["finite"] and d[case]["err"] <= STREAM_RTOL *
+                  max(d[case]["scale"], 1e-30),
+                  f"(d) rank {r['rank']} {case}: {d[case]['err']:.3e}")
+        add(d["launches"])
+
+    # (b) faults and sampling on the mesh
+    for name in ("faulty", "sampled"):
+        want = refs[name]
+        k = int(want["masks"].any(axis=1).sum())
+        for r in ranks:
+            f = r[name]
+            print(f"  (b) {name}, rank {r['rank']}: {FAULT_ROUNDS} rounds in "
+                  f"{f['wall']:.3f} s; launches {f['launches']}")
+            masks = f["masks"]
+            check(np.array_equal(f["times"], want["times"])
+                  and np.array_equal(masks[:, inv], want["masks"]),
+                  f"(b) {name}, rank {r['rank']}: clock or masks != "
+                  f"phase 11's")
+            if name == "sampled":
+                check(not masks[:, perm < 0].any(), "a pad row sampled")
+            check(f["launches"] == expect(segment_aggregate=b * k,
+                                          weighted_mean=k),
+                  f"(b) {name}, rank {r['rank']}: launches {f['launches']}")
+            add(f["launches"])
+        agree(name)
+        hold_model(f"(b) {name} mesh vs phase 11, params", max(
+            _max_err(x, y) for x, y in zip(ranks[0][name]["final"],
+                                           want["final"])), ref[name])
+
+    # (c) the service on the mesh
+    single = refs["service"]
+    for r in ranks:
+        for part in ("service", "resumed"):
+            c = r[part]
+            events = c["events"] - c["start"]
+            print(f"  (c) {part}, rank {r['rank']}: events {c['start']}.."
+                  f"{c['events']} in {c['wall']:.3f} s "
+                  f"({c['wall'] / events:.4f} s an event, construction "
+                  f"included); launches {c['launches']}")
+            check(c["launches"] == c["want"],
+                  f"(c) {part}, rank {r['rank']}: launches {c['launches']} "
+                  f"!= {c['want']}")
+            add(c["launches"])
+        c, res = r["service"], r["resumed"]
+        check([x for x in c["trace"] if x["kind"] != "ckpt"] ==
+              single["trace"], f"(c) rank {r['rank']}: trace != phase 13's")
+        check(res["src"] == "ckpt-1.npz" and res["start"] == MESH_CKPT_AT,
+              f"(c) rank {r['rank']}: resumed from {res['src']} at "
+              f"{res['start']}")
+        err = float(np.abs(res["g"] - c["g"]).max())
+        check(_merge_records(res["trace"]) == _merge_records(c["trace"])
+              and err <= SERVICE_MODEL_TOL,
+              f"(c) rank {r['rank']}: resumed trace or model ({err!r})")
+        check(np.array_equal(c["g"], ranks[0]["service"]["g"]),
+              f"(c) rank {r['rank']}'s model differs from rank 0's")
+    err = float(np.abs(ranks[0]["resumed"]["g"] -
+                       ranks[0]["service"]["g"]).max())
+    print(f"  (c) mesh trace = phase 13's streamed service's, record for "
+          f"record; resumed from ckpt-1 (event {MESH_CKPT_AT}, rank 0's): "
+          f"trace equal, model max|err| {err!r}")
+    hold_model("(c) service mesh vs phase 13, g", float(
+        np.abs(ranks[0]["service"]["g"] - single["g"]).max()),
+        ref["service"])
+
+    # (e) the SPMD round
+    base, spread = ref["spmd"]
+    diff = 0.0
+    for r in ranks:
+        e = r["spmd"]
+        print(f"  (e) rank {r['rank']} (edge {e['coords'][0]}, UE "
+              f"{e['coords'][1]}): one cloud round, a*={sch.a} b*={b}, in "
+              f"{e['wall']:.3f} s; launches {e['launches']}")
+        check(e["launches"] == expect(), f"(e) rank {r['rank']} launched "
+                                         f"{e['launches']}")
+        diff = max(diff, max(_max_err(x[0], y[r["rank"]])
+                             for x, y in zip(e["final"], base)))
+    hold_model("(e) SPMD round vs the stacked loop on one card", diff,
+               spread)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3010,7 +3547,7 @@ def main(argv=None) -> int:
     card_sync, spread = phase_card_vs_cpu(sch, ue_data, test)
 
     print("== phase 5: async Algorithm 1 at full width")
-    phase_async(sch, ue_data, test, card_sync, spread)
+    async_run = phase_async(sch, ue_data, test, card_sync, spread)
 
     print("== phase 6: streaming edge aggregation, 1,048,576 rows")
     launches["segment_sum"] = phase_streaming()
@@ -3051,7 +3588,7 @@ def main(argv=None) -> int:
 
     print("== phase 11: faults and sampling at full width")
     t0 = time.perf_counter()
-    faulty, fault_errs = phase_faults(sch, ue_data, test)
+    faulty, fault_errs, fault_runs = phase_faults(sch, ue_data, test)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     for name in ("segment_aggregate", "cloud_aggregate"):
         launches[name] += faulty[name]
@@ -3060,9 +3597,16 @@ def main(argv=None) -> int:
     print("== phase 12: joint planning, a checkpointed async run")
     joint = phase_joint(ue_data, test)
     print("== phase 13: the always-on service on the card")
-    served13 = phase_service(sch, ue_data, test)
+    served13, stream_service = phase_service(sch, ue_data, test)
     for name in KERNELS:
         launches[name] += joint[name] + served13[name]
+
+    print("== phase 14: async, faults, sampling, the service and the SPMD "
+          "round on 4 ranks")
+    meshed = phase_mesh(sch, ue_data, test, {
+        "async": async_run, "service": stream_service, **fault_runs})
+    for name in KERNELS:
+        launches[name] += meshed[name]
 
     print(f"total {time.perf_counter() - t_start:.1f} s on {card_line()}")
     print("kernels: " + ", ".join(KERNELS))

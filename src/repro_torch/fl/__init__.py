@@ -1,6 +1,6 @@
 """Three-layer hierarchical FL runtime (Alg. 1), synchronous and async,
-on one device, with injected faults and sampled cohorts; synchronous on a
-mesh of ranks too.
+with injected faults and sampled cohorts, on one device or a mesh of
+ranks; and the SPMD backend (one UE a rank).
 
 * ``aggregate`` — weighted model averaging, eqs. (6)/(10), over stacked
   parameter dicts or the flat ``(N, F_total)`` buffer (one kernel launch
@@ -18,11 +18,14 @@ mesh of ranks too.
   async replay hooks the always-on service drives
   (``repro_torch.launch.service``) and a ``params`` setter for restoring
   checkpointed replicas.
+* ``spmd``      — the schedule as collectives on an ('edge', 'ue') mesh
+  of ranks (``make_hfl_cloud_round``).
 """
 from repro_torch.fl.aggregate import (StreamingEdgeAccumulator,
                                       flat_cloud_aggregate,
                                       flat_edge_aggregate,
                                       flat_staleness_merge,
+                                      psum_staleness_merge,
                                       stacked_weighted_average,
                                       streaming_edge_aggregate,
                                       survivor_weights, weighted_average)
@@ -33,6 +36,7 @@ from repro_torch.fl.sim import HFLSimulator, SimResult
 
 __all__ = ["StreamingEdgeAccumulator", "flat_cloud_aggregate",
            "flat_edge_aggregate", "flat_staleness_merge",
+           "psum_staleness_merge",
            "stacked_weighted_average", "streaming_edge_aggregate",
            "survivor_weights", "weighted_average", "FlatLayout",
            "ShardedFlatLayout", "ClientSampler", "make_sampler",

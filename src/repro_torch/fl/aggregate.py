@@ -6,9 +6,9 @@ package's ``repro/fl/aggregate.py``.
   ``flat_cloud_aggregate`` — the hot path, one kernel launch per event
   (``repro_torch.kernels.hier_aggregate``), on one device or on a
   ('data', 'model') mesh of ranks (``mesh=``, below);
-* the async cloud merge ``flat_staleness_merge`` and the fault rule
-  ``survivor_weights`` (plain torch, as the JAX package leaves them to
-  XLA);
+* the async cloud merge ``flat_staleness_merge`` (one device or a mesh)
+  and the fault rule ``survivor_weights`` (plain torch, as the JAX package
+  leaves them to XLA);
 * STREAMING edge aggregation (``StreamingEdgeAccumulator``,
   ``streaming_edge_aggregate``): chunks of client rows fold into an
   ``(M, F)`` accumulator, one ``segment_sum`` kernel launch per chunk;
@@ -31,7 +31,9 @@ slab back.  Collective pattern, as in the reference:
   column slab; with more, each rank's local weighted mean (``weighted_mean``
   kernel) times its local weight sum, 0 for an all-padding shard, meets
   the other shards' in ONE all-reduce of ``F_local + 1`` floats over
-  'data' (``psum_weighted_mean``), then a local broadcast-back.
+  'data' (``psum_weighted_mean``), then a local broadcast-back;
+* async merge: each rank's decayed-weight sum of its slab's rows and its
+  mass meet in the same single all-reduce (``psum_staleness_merge``).
 """
 from __future__ import annotations
 
@@ -71,6 +73,28 @@ def psum_weighted_mean(num: torch.Tensor, den: torch.Tensor,
     v = torch.cat([num, den.reshape(1).to(num.dtype)])
     dist.all_reduce(v, group=group)
     return v[:-1] / v[-1]
+
+
+def psum_staleness_merge(global_vec: torch.Tensor, num: torch.Tensor,
+                         wd_sum: torch.Tensor, w_total: float,
+                         group) -> torch.Tensor:
+    """The staleness-weighted variant of ``psum_weighted_mean``: the async
+    cloud merge with its sums split across the ranks of ``group``.
+
+    Each rank passes its decayed-weight numerator ``num = sum_n w_n d_n
+    row_n`` and mass ``wd_sum = sum_n w_n d_n`` (``d_n = decay**staleness``
+    for rows of arrived edges, 0 otherwise); after ONE all-reduce of
+    ``len(num) + 1`` floats
+
+        g <- (1 - Lambda) g + sum(num) / W,   Lambda = sum(wd_sum) / W
+
+    with ``W`` the fleet's total weight (static, no collective).  When
+    every edge arrives with staleness 0, Lambda == 1 and this is eq. 10's
+    weighted mean."""
+    v = torch.cat([num, wd_sum.reshape(1).to(num.dtype)])
+    dist.all_reduce(v, group=group)
+    lam = v[-1] / w_total
+    return (1.0 - lam) * global_vec + v[:-1] / w_total
 
 
 def flat_cloud_aggregate(buf: torch.Tensor, weights, *,
@@ -115,26 +139,38 @@ def flat_edge_aggregate(buf: torch.Tensor, weights, group_ids,
 
 
 def flat_staleness_merge(global_vec: torch.Tensor, buf: torch.Tensor,
-                         eff_weights, w_total) -> torch.Tensor:
+                         eff_weights, w_total, *,
+                         mesh=None) -> torch.Tensor:
     """Async cloud merge: staleness-weighted update of the cloud model from
     the arrived edges' rows of the flat buffer.
 
     global_vec:  (F,) cloud model;
     buf:         (N, F) flat buffer;
     eff_weights: (N,) effective row weights ``w_n * decay**staleness`` for
-                 members of arrived edges, 0 for every other row;
+                 members of arrived edges, 0 for every other row (padding
+                 rows included);
     w_total:     python float, the TOTAL fleet weight ``sum_n w_n``.
 
         g <- (1 - Lambda) g + sum_n eff_n row_n / W,  Lambda = sum_n eff_n / W
 
     which is eq. 10 when every edge arrives with staleness 0 (the
-    ``max_staleness=0`` barrier).  Returns a new (F,) fp32 vector."""
+    ``max_staleness=0`` barrier).  Returns a new (F,) fp32 vector.
+
+    With ``mesh``, every rank passes its column slab of the cloud vector,
+    its slab of the padded buffer and its rows' weights, and gets its
+    column slab back: each rank reduces its slab with a matrix product
+    (the reference's ``tensordot``: no Pallas kernel) and the partials meet
+    in one all-reduce over 'data' (``psum_staleness_merge``)."""
     eff = torch.as_tensor(eff_weights, dtype=torch.float32,
                           device=buf.device)
     w_total = float(w_total)
+    g32 = global_vec.to(torch.float32)
     num = eff @ buf.to(torch.float32)
+    if mesh is not None and mesh.num_data > 1:
+        return psum_staleness_merge(g32, num, eff.sum(), w_total,
+                                    mesh.data_group)
     lam = eff.sum() / w_total
-    return (1.0 - lam) * global_vec.to(torch.float32) + num / w_total
+    return (1.0 - lam) * g32 + num / w_total
 
 
 def survivor_weights(weights, survivors, group_ids,

@@ -1,12 +1,17 @@
-"""Meshes of ``torch.distributed`` ranks for the data-sharded flat buffer.
+"""Meshes of ``torch.distributed`` ranks: the data-sharded flat buffer's
+and the SPMD backend's.
 
 Counterpart of the JAX package's ``repro/launch/mesh.py`` (``DATA_AXIS``,
-``MODEL_AXIS``, ``make_agg_mesh``).  A JAX mesh is one program over many
-devices (``shard_map``).  Here a mesh is a set of ``torch.distributed``
-ranks, one process each: every rank holds one slab of the flat
-``(N, F_total)`` buffer (whole edges' UE rows over ``data``, a column slab
-over ``model``), and every sharded function is called by every rank with
-its LOCAL slab (multi-controller).
+``MODEL_AXIS``, ``make_agg_mesh``, ``make_fl_mesh``).  A JAX mesh is one
+program over many devices (``shard_map``).  Here a mesh is a set of
+``torch.distributed`` ranks, one process each, and every sharded function
+is called by every rank with its LOCAL slab (multi-controller):
+
+* ``make_agg_mesh``: each rank holds one slab of the flat ``(N, F_total)``
+  buffer (whole edges' UE rows over ``data``, a column slab over
+  ``model``);
+* ``make_fl_mesh``: each rank is one UE of an ('edge', 'ue') grid
+  (``repro_torch.fl.spmd``).
 
 ``run_ranks`` spawns such a set of ranks on one host (tests,
 ``chip_smoke.py``).  Nothing here touches the network: the ranks meet
@@ -99,12 +104,90 @@ def make_agg_mesh(num_model: int, num_data: int = 1, *, device=None,
                            timeout=timeout)
         if i == d:
             model_group = g
+    return AggMesh(num_data=num_data, num_model=num_model, data_index=d,
+                   model_index=m, device=_rank_device(device, rank),
+                   data_group=data_group, model_group=model_group)
+
+
+@dataclasses.dataclass(frozen=True)
+class FLMesh:
+    """One rank's view of an ('edge', 'ue') mesh of ranks: one UE a rank.
+
+    Rank ``r`` is UE ``r % ues_per_edge`` of edge ``r // ues_per_edge``,
+    the reference's device grid order.  ``ue_group`` holds the ranks of
+    this rank's edge (the eq. 6 all-reduce runs over it), ``world_group``
+    every rank (eq. 10 and DANE's global gradient)."""
+    num_edges: int
+    ues_per_edge: int
+    edge_index: int
+    ue_index: int
+    device: torch.device
+    ue_group: Any = None
+    world_group: Any = None
+
+    @property
+    def shape(self) -> dict:
+        return {"edge": self.num_edges, "ue": self.ues_per_edge}
+
+    @property
+    def size(self) -> int:
+        return self.num_edges * self.ues_per_edge
+
+    @property
+    def rank(self) -> int:
+        return self.edge_index * self.ues_per_edge + self.ue_index
+
+    def local(self, x):
+        """This rank's ``(1, ...)`` slab of a stacked ``(E*U, ...)`` tensor,
+        array or nested dict of them, on the mesh's device."""
+        if isinstance(x, dict):
+            return {k: self.local(v) for k, v in x.items()}
+        return torch.as_tensor(x[self.rank:self.rank + 1],
+                               device=self.device)
+
+
+def make_fl_mesh(num_edges: int, ues_per_edge: int, *, device=None,
+                 timeout: Optional[datetime.timedelta] = None) -> FLMesh:
+    """This rank's ('edge', 'ue') mesh for the SPMD backend over the
+    default process group, whose world size must be ``num_edges *
+    ues_per_edge``.
+
+    Every rank must call it, in the same order as its other group
+    creations: each creates every edge's subgroup, then the world's, with
+    the backend the caller initialised.  ``timeout`` bounds the subgroups'
+    collectives (``None``: torch's default).  ``device=None`` is the card
+    ``cuda:{rank % device_count}`` (and raises without one); ``"cpu"`` for
+    the CPU."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_fl_mesh needs an initialised default "
+                           "process group (torch.distributed)")
+    world = dist.get_world_size()
+    if world != num_edges * ues_per_edge:
+        raise ValueError(f"a {num_edges} x {ues_per_edge} mesh needs "
+                         f"{num_edges * ues_per_edge} ranks, the process "
+                         f"group has {world}")
+    rank = dist.get_rank()
+    e, u = divmod(rank, ues_per_edge)
+    ue_group = None
+    for i in range(num_edges):
+        g = dist.new_group([i * ues_per_edge + j
+                            for j in range(ues_per_edge)], timeout=timeout)
+        if i == e:
+            ue_group = g
+    world_group = dist.new_group(list(range(world)), timeout=timeout)
+    return FLMesh(num_edges=num_edges, ues_per_edge=ues_per_edge,
+                  edge_index=e, ue_index=u,
+                  device=_rank_device(device, rank), ue_group=ue_group,
+                  world_group=world_group)
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """``device`` resolved; the bare card is rank ``r``'s
+    ``cuda:{r % device_count}``."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-    return AggMesh(num_data=num_data, num_model=num_model, data_index=d,
-                   model_index=m, device=dev, data_group=data_group,
-                   model_group=model_group)
+    return dev
 
 
 def _rank_main(rank, world, store_path, timeout_s, on_cuda, fn, args,

@@ -85,6 +85,16 @@ it.  Where the reference folds its random keys, the port folds the
 checkpoint tree, its schema version and the trace records are the
 reference's, field for field.
 
+On a mesh of ranks (a simulator built with ``mesh=``) every rank runs
+the same service: the control plane is deterministic, reads the
+simulator's global padded weights and group ids (``_hot_weights``,
+``_hot_gids``) as the reference does, and calls the simulator's hooks in
+the same order on every rank, which make their results global (an
+all-reduce over 'data', an all-gather over 'model').  The streaming merge
+folds the gathered cohort rows on each rank.  Only rank 0 writes a
+checkpoint (every rank writing the same temporary file at once would
+race); the others wait for it, and every rank reads it on resume.
+
 Minimal lifecycle::
 
     sim = default_service_sim(num_ues=24, num_edges=4, max_staleness=4,
@@ -111,6 +121,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (CheckpointError, gc_checkpoints,
                                     list_checkpoints, load_pytree,
@@ -295,10 +306,11 @@ class HFLService:
 
     ``sim`` must be ``mode="async"`` with ``schedule.problem`` set (the
     delay draws need the eq. 1-5/8 ingredients) and
-    ``max_staleness == config.max_staleness``, on one device.  The
-    service owns the published cloud vector ``g`` (host float32); the
-    simulator's flat buffer, on its device, carries the per-UE replicas it
-    trains on departures.
+    ``max_staleness == config.max_staleness``, on one device or a mesh of
+    ranks (every rank runs the service in step).  The service owns the
+    published cloud vector ``g`` (host float32); the simulator's flat
+    buffer, on its device, carries the per-UE replicas it trains on
+    departures.
     """
 
     def __init__(self, sim, config: ServiceConfig):
@@ -312,19 +324,17 @@ class HFLService:
             raise ValueError(
                 f"simulator max_staleness={sim.max_staleness} != config "
                 f"max_staleness={config.max_staleness}; build them to agree")
-        if sim.mesh is not None:
-            raise NotImplementedError(
-                "HFLService over a mesh is not ported to repro_torch yet "
-                "(ROADMAP Queue 1 item 13b)")
         self.sim = sim
         self.config = config
         sched = sim.schedule
         assoc = np.asarray(sched.assoc)
         self.active = np.flatnonzero(assoc.sum(0) > 0)
         self.M_act = int(self.active.size)
-        # host copies of the rows' weights (float32) and edge ids
-        self._w = sim.weights.cpu().numpy()
-        self._gids = sim.group_ids.cpu().numpy()
+        # host copies of the hot rows' weights (float32) and edge ids
+        self._w = np.asarray(sim._hot_weights)
+        self._gids = np.asarray(sim._hot_gids)
+        # a mesh's pad rows (weight 0) belong to no cohort
+        self._real = self._w > 0
         self.w_total = float(self._w.astype(np.float64).sum())
 
         # Per-segment replay-stable draw streams: segment i samples under
@@ -517,6 +527,15 @@ class HFLService:
 
     # -- model replay ----------------------------------------------------
 
+    def _cohort(self, m_full: int) -> np.ndarray:
+        """Edge ``m_full``'s members over the hot rows.  A mesh's pad rows
+        carry edge ids (row-0 copies) but weight 0: they are in no cohort,
+        so the shed, fallback and streamed-merge rules count the members
+        the edge has on one device.  (The reference counts them: there a
+        mesh service sheds pad rows in place of members and streams them
+        as rows of weight 0.)"""
+        return (self._gids == int(m_full)) & self._real
+
     def _shed_mask(self, cohorts: np.ndarray) -> Optional[np.ndarray]:
         """Degraded-mode UE participation mask over hot rows: within each
         departing cohort, drop the lowest-weight ``ue_shed_frac`` of the
@@ -529,7 +548,7 @@ class HFLService:
         gids = self._gids
         ue_ok = np.ones(gids.shape[0], dtype=bool)
         for m in np.unique(gids[cohorts]):
-            rows = np.flatnonzero(cohorts & (gids == m))
+            rows = np.flatnonzero(cohorts & self._cohort(m))
             k = min(int(frac * rows.size), rows.size - 1)
             if k > 0:
                 order = np.lexsort((rows, w[rows]))
@@ -591,7 +610,7 @@ class HFLService:
             fault_ok = np.ones(gids.shape[0], dtype=bool)
             live: List[Tuple[int, float, int]] = []
             for m_eng, t, cyc in departs:
-                cohort = gids == int(self.active[m_eng])
+                cohort = self._cohort(int(self.active[m_eng]))
                 srow = self._fault_survivors(t, cyc)
                 fault_ok[cohort] = srow[cohort]
                 key = (int(m_eng), int(cyc))
@@ -605,7 +624,7 @@ class HFLService:
                 return
         cohorts = np.zeros(gids.shape[0], dtype=bool)
         for m_eng, _t, _c in departs:
-            cohorts |= gids == int(self.active[m_eng])
+            cohorts |= self._cohort(int(self.active[m_eng]))
         ue_ok = self._shed_mask(cohorts)
         if fault_ok is not None:
             if ue_ok is None:
@@ -615,7 +634,7 @@ class HFLService:
                 # The advisory shed can empty a cohort the faults left
                 # alive; fall back to the fault survivors alone there.
                 for m_eng, _t, _c in departs:
-                    cohort = gids == int(self.active[m_eng])
+                    cohort = self._cohort(int(self.active[m_eng]))
                     if not (ue_ok & cohort).any():
                         ue_ok[cohort] = fault_ok[cohort]
         agg_w = None
@@ -623,7 +642,7 @@ class HFLService:
             part = np.ones(gids.shape[0], dtype=bool)
             agg_w = self._w.astype(np.float64)
             for m_eng, _t, cyc in departs:
-                cohort = gids == int(self.active[m_eng])
+                cohort = self._cohort(int(self.active[m_eng]))
                 part[cohort] = self._participation_mask(cyc)[cohort]
                 agg_w[cohort] = self._ipw_weights(cyc)[cohort]
             combined = part if ue_ok is None else (ue_ok & part)
@@ -632,7 +651,7 @@ class HFLService:
             # the sampled cohort (cut to the fault survivors when there
             # is a fault layer), then to the fault survivors alone.
             for m_eng, _t, _c in departs:
-                cohort = gids == int(self.active[m_eng])
+                cohort = self._cohort(int(self.active[m_eng]))
                 if not (combined & cohort).any():
                     fallback = part[cohort]
                     if fault_ok is not None:
@@ -784,7 +803,7 @@ class HFLService:
             return self.sim.edge_mean_row(m_full).cpu().numpy().astype(
                 np.float32)
         w = self._w.astype(np.float64)
-        idx = np.flatnonzero(self._gids == int(m_full))
+        idx = np.flatnonzero(self._cohort(m_full))
         acc = self._stream_acc.reset()
         for s in range(0, idx.size, chunk):
             sel = idx[s:s + chunk]
@@ -873,17 +892,21 @@ class HFLService:
 
     def to_jsonl(self, path: str) -> str:
         """Versioned JSONL export of the service trace (header + one
-        record per line; see ``load_service_trace_jsonl``)."""
-        with open(path, "w", encoding="utf-8") as f:
-            f.write(json.dumps({
-                "schema": SERVICE_TRACE_SCHEMA,
-                "version": SERVICE_TRACE_VERSION,
-                "num_records": len(self.trace),
-                "summary": self.summary(),
-            }) + "\n")
-            for rec in self.trace:
-                f.write(json.dumps(rec) + "\n")
-        return path
+        record per line; see ``load_service_trace_jsonl``).  On a mesh,
+        rank 0 writes it."""
+        def write():
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(json.dumps({
+                    "schema": SERVICE_TRACE_SCHEMA,
+                    "version": SERVICE_TRACE_VERSION,
+                    "num_records": len(self.trace),
+                    "summary": self.summary(),
+                }) + "\n")
+                for rec in self.trace:
+                    f.write(json.dumps(rec) + "\n")
+            return path
+
+        return self._on_rank0(write)
 
     # -- durability ------------------------------------------------------
 
@@ -939,25 +962,41 @@ class HFLService:
 
     def checkpoint(self) -> str:
         """Atomically persist the full control-plane state as
-        ``ckpt-<n>.npz`` under ``config.ckpt_dir``."""
+        ``ckpt-<n>.npz`` under ``config.ckpt_dir`` (on a mesh: every rank
+        gathers the state, rank 0 writes it, the others wait for it)."""
         if not self.config.ckpt_dir:
             raise ValueError("config.ckpt_dir is unset")
         t0 = time.perf_counter()
         self._ckpt_count += 1
         path = f"{self.config.ckpt_dir}/ckpt-{self._ckpt_count}.npz"
-        out = save_pytree(path, self._state_tree(), metadata={
-            "schema": SERVICE_CKPT_VERSION,
-            "config": self.config.to_json(),
-        })
-        gc_n = 0
-        if self.config.keep_last_k > 0:
-            gc_n = len(gc_checkpoints(self.config.ckpt_dir,
-                                      self.config.keep_last_k))
+        tree = self._state_tree()
+
+        def write():
+            save_pytree(path, tree, metadata={
+                "schema": SERVICE_CKPT_VERSION,
+                "config": self.config.to_json(),
+            })
+            if self.config.keep_last_k > 0:
+                return len(gc_checkpoints(self.config.ckpt_dir,
+                                          self.config.keep_last_k))
+            return 0
+
+        gc_n = self._on_rank0(write)
         dt = time.perf_counter() - t0
         self.ckpt_wall += dt
         self.trace.append(dict(kind="ckpt", t=self.clock,
                                n=self._ckpt_count, wall=dt, gc=gc_n))
-        return out
+        return path
+
+    def _on_rank0(self, fn):
+        """``fn()`` on one device, or on rank 0 of the simulator's mesh
+        while the other ranks wait for its result (one broadcast)."""
+        mesh = self.sim.mesh
+        if mesh is None:
+            return fn()
+        out = [fn() if mesh.rank == 0 else None]
+        dist.broadcast_object_list(out, src=0)
+        return out[0]
 
     def _restore_tree(self, tree: dict, meta: dict) -> None:
         schema = int(np.asarray(meta["schema"]))

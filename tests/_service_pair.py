@@ -8,20 +8,15 @@ tests use ``CHEAP`` (``zeta = gamma = 2``: a* = 3, b* = 4, one sixth of
 the default's local steps a wave), so a service run of a hundred events
 takes seconds on the CPU.  ``jax_keys()`` makes the port's service draw
 with the reference's keys; ``assert_same_trace`` holds two traces to each
-other record by record.
+other record by record.  JAX and the reference are imported only where
+they are used, so ranks that build the port's simulator (``tsim``) do not
+load them.
 """
 import contextlib
 from unittest import mock
 
-import jax
 import numpy as np
 
-from _jax_key import JaxKey
-
-from repro.core import plan as j_plan
-from repro.core.problem import HFLProblem as JProblem
-from repro.fl.sim import HFLSimulator as JSim
-from repro.models import lenet as j_lenet
 from repro_torch.core import plan as t_plan
 from repro_torch.core.problem import HFLProblem as TProblem
 from repro_torch.data import partition, synthetic
@@ -44,6 +39,12 @@ def _ue_data(prob, seed):
 
 
 def jsim(ues=UES, edges=EDGES, s_max=S_MAX, seed=0, **problem):
+    import jax
+
+    from repro.core import plan as j_plan
+    from repro.core.problem import HFLProblem as JProblem
+    from repro.fl.sim import HFLSimulator as JSim
+    from repro.models import lenet as j_lenet
     prob = JProblem(num_edges=edges, num_ues=ues, seed=seed, **problem)
     return JSim(j_plan(prob), lambda p, b: j_lenet.logreg_loss(p, b, l2=1e-3),
                 j_lenet.logreg_init(jax.random.PRNGKey(seed), 12, 4),
@@ -51,12 +52,13 @@ def jsim(ues=UES, edges=EDGES, s_max=S_MAX, seed=0, **problem):
                 staleness_decay=0.9, seed=seed)
 
 
-def tsim(ues=UES, edges=EDGES, s_max=S_MAX, seed=0, **problem):
+def tsim(ues=UES, edges=EDGES, s_max=S_MAX, seed=0, mesh=None, **problem):
+    """The port's simulator; ``mesh=`` (an ``AggMesh``) shards it."""
     prob = TProblem(num_edges=edges, num_ues=ues, seed=seed, **problem)
     return TSim(t_plan(prob), lambda p, b: t_lenet.logreg_loss(p, b, l2=1e-3),
                 t_lenet.logreg_init(12, 4, device="cpu"),
                 _ue_data(prob, seed), mode="async", max_staleness=s_max,
-                staleness_decay=0.9, seed=seed, device="cpu")
+                staleness_decay=0.9, seed=seed, mesh=mesh, device="cpu")
 
 
 @contextlib.contextmanager
@@ -64,6 +66,7 @@ def jax_keys():
     """The port's service draws its delay, fault and cohort streams with
     the reference's keys (``jax.random.PRNGKey(seed)``, what the reference
     makes of each seed)."""
+    from _jax_key import JaxKey
     seeds = {"_delay_key": "delay_seed", "_fault_key": "fault_seed",
              "_sample_key": "sample_seed"}
     with contextlib.ExitStack() as stack:

@@ -479,15 +479,6 @@ def test_sharded_simulator_matches_reference_single_device(
 # ---------------------------------------------------------------------------
 
 
-def test_async_with_mesh_raises_naming_item_13b():
-    from repro_torch.core import plan
-    from repro_torch.core.problem import HFLProblem
-    from repro_torch.fl.sim import HFLSimulator
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        HFLSimulator(plan(HFLProblem(**QUICKSTART)), None, {}, [{}] * 8,
-                     mode="async", mesh=_fake_mesh(2, 1), device="cpu")
-
-
 def test_make_agg_mesh_needs_a_process_group_of_its_size(rank_runs):
     import torch.distributed as dist
     assert not dist.is_initialized()

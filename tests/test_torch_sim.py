@@ -19,11 +19,9 @@ from repro.core import plan as j_plan  # noqa: E402
 from repro.core.problem import HFLProblem as JProblem  # noqa: E402
 from repro.fl.sim import HFLSimulator as JSim  # noqa: E402
 from repro.models import lenet as j_lenet  # noqa: E402
-from repro_torch.core import faults as t_faults  # noqa: E402
 from repro_torch.core import plan as t_plan  # noqa: E402
 from repro_torch.core.problem import HFLProblem as TProblem  # noqa: E402
 from repro_torch.data import partition, synthetic  # noqa: E402
-from repro_torch.fl import sampling as t_sampling  # noqa: E402
 from repro_torch.fl.flatten import tree_leaves  # noqa: E402
 from repro_torch.fl.sim import HFLSimulator  # noqa: E402
 from repro_torch.models import lenet as t_lenet  # noqa: E402
@@ -136,24 +134,6 @@ def _small_sim_args():
             {"w": np.zeros((6, 3), np.float32),
              "b": np.zeros(3, np.float32)},
             _ue_data(train, 200, sch.problem.samples))
-
-
-_FAULTS = t_faults.FaultModel(dropout=t_faults.BernoulliDropout(0.2))
-_SAMPLER = t_sampling.make_sampler("uniform", 0.5)
-
-
-@pytest.mark.parametrize("kw", [
-    {"mode": "async", "mesh": object(), "fault_model": _FAULTS},
-    {"mesh": object(), "sampler": _SAMPLER},
-    {"mode": "async", "mesh": object()},
-    {"mode": "async", "mesh": object(), "sampler": _SAMPLER},
-    {"mesh": object(), "fault_model": _FAULTS},
-    {"mesh": object(), "fault_model": _FAULTS, "sampler": _SAMPLER}])
-def test_unported_features_raise(kw):
-    """Async on a mesh, and faults or sampling on a mesh, wait for ROADMAP
-    Queue 1 item 13b (faults and sampling on one device are ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HFLSimulator(*_small_sim_args(), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("mu", [0.1, 0.5])

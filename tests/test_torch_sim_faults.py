@@ -366,10 +366,5 @@ def test_validation_as_reference(logreg):
     # the null model and a full sampler route to None before any check
     _tsim(logreg, solver="dane", fault_model=t_f.FaultModel(),
           sampler=t_s.make_sampler("weight", 1.0))
-    for kw in (dict(fault_model=t_f.FaultModel(
-                   dropout=t_f.BernoulliDropout(0.2))),
-               dict(sampler=t_s.make_sampler("uniform", 0.5))):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            _tsim(logreg, mesh=object(), **kw)
     sim = _tsim(logreg)
     assert sim.fault_policy == t_f.deadline_failover_policy()
