@@ -48,7 +48,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``HFLSimulator(device="cuda")``) for 2 cloud rounds; each kernel's
    launch count over exactly that run must equal what the schedule needs.
    Then one warm round timed and one profiled (where the device time goes).
-4. The card against the CPU: one cloud round from the same init on both.
+4. The card against the CPU: one cloud round from the same init on both,
+   on edge 0's 20 UEs at phase 3's (a*, b*), within SENSITIVITY_FACTOR
+   times the CPU's spread there; then the full cohort's round on the card
+   and its spread on the card (cuDNN's deterministic algorithms), phase
+   5's references.
 5. Async Algorithm 1 at full width (``mode="async"``, ``max_staleness=2``)
    for 2 rounds' delivery quota; launch counts against the departure waves
    of its event trace.  Then the ``max_staleness=0`` barrier against the
@@ -167,8 +171,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    single-device run on the card by phase 9's rule (the stacked loop of
    ``clients.gd_local_steps`` and ``stacked_weighted_average`` for (e));
    the references not run by phases 5, 11 and 13 and the spread runs run
-   in this process while the ranks run.
-15. Kernel records as JSON (``launches``: each path's count, read around
+   in this process while the ranks run.  After (e) the ranks also run
+   phase 15's part (d).
+15. The transformer's training half, with no kernel launch: (a)
+   ``repro_torch.launch.train``'s CLI at its defaults on the card,
+   full-width StableLM-1.6B (1,644,267,520 fp32 parameters), AdamW, B=8,
+   S=128, 10 steps through ``impl="xla_flash"`` (finite, falling
+   losses; ms a step, tokens/s, 6*N*tokens/step time against 67 TFLOP/s
+   fp32, peak memory; one warm step profiled); (b) 2 layers of it at full
+   width (d_model 2,048, vocab 100,352), B=1, S=64, card against CPU from
+   the same init: the loss, every gradient leaf and the params after one
+   AdamW step within SENSITIVITY_FACTOR times the card's spread under a
+   1e-7 embedding move; (c) ``flash_attention``, ``rglru_scan`` and
+   ``decode_attention`` raise on CUDA inputs that require grad and launch
+   under ``torch.no_grad()``; (d), in phase 14's spawn, ``--mode hfl
+   --edges 2 --ues 2 --smoke --rounds 2`` on the 2 x 2 mesh: the ranks'
+   params equal after each cloud event and held to the single-device
+   stacked loop on the card by phase 14's rule.
+16. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phases 9 and 14, over the ranks), then the result line.
 
@@ -277,6 +297,7 @@ CLI_BATCH, CLI_PROMPT, CLI_LAYERS = 4, 64, 24
 SHARD_RANKS = 2
 SHARD_ROWS = 60
 SPREAD_SEEDS = (1, 2, 3)
+CPU_EDGE = 0                 # phase 4's card-against-CPU cohort: this edge
 LENET_PARAMS = 44_426
 FLEET_ROWS = 16_384
 FLEET_SEED = 11
@@ -336,6 +357,15 @@ MESH_STREAM_CHUNK = 32
 MESH_STREAM_SEED = 5
 MESH_SPREAD_SEEDS = SPREAD_SEEDS[:2]  # two moves a spread
 FL_MESH = (2, 2)
+# Phase 15: the transformer's training half.  (a) the training CLI at its
+# defaults (full-width StableLM-1.6B, B=8, S=128, AdamW at 3e-4); (b) a
+# full-width 2-layer cut card against CPU; (d) ``--mode hfl`` at smoke
+# width on phase 14's 2 x 2 mesh of ranks.
+TRAIN_ARGV = ["--arch", CLI_ARCH, "--steps", "10", "--device", "cuda"]
+TRAIN_LR = 3e-4
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 1, 64
+HFL_ARGV = ["--mode", "hfl", "--edges", "2", "--ues", "2", "--smoke",
+            "--rounds", "2"]
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -1499,32 +1529,64 @@ def profile_round(sim, test, top: int = 8) -> None:
     print_top(kernels, top)
 
 
+def sub_problem(sch, ue_data):
+    """Edge CPU_EDGE's UEs alone at phase 3's (a*, b*): the cohort of phase
+    4's card-against-CPU round (its weights are the UEs' sample counts,
+    their D_n)."""
+    idx = np.flatnonzero(sch.assoc[:, CPU_EDGE])
+    sub = dataclasses.replace(
+        sch, assoc=sch.assoc[idx][:, [CPU_EDGE]],
+        edge_round_time=sch.edge_round_time[[CPU_EDGE]], problem=None)
+    return sub, [ue_data[i] for i in idx]
+
+
 def phase_card_vs_cpu(sch, ue_data, test):
-    def final(device, noise=0.0):
+    """One cloud round from the same init on the card and the CPU, on edge
+    CPU_EDGE's cohort, held to SENSITIVITY_FACTOR times the CPU's spread
+    under a SENSITIVITY_NOISE init move.  Returns phase 5's references:
+    the full cohort's round on the card and its spread on the card (cuDNN's
+    deterministic algorithms, so the spread is the move's alone)."""
+    def final(schedule, data, device, noise=0.0):
         t0 = time.perf_counter()
-        res = make_sim(sch, ue_data, device, noise=noise).run(test, rounds=1)
+        res = make_sim(schedule, data, device, noise=noise).run(test,
+                                                                rounds=1)
         if device == "cuda":
             torch.cuda.synchronize()
-        print(f"  one cloud round on {device}"
+        print(f"  one cloud round, {schedule.num_ues} UEs on {device}"
               f"{' (init moved by %g)' % noise if noise else ''}: "
               f"{time.perf_counter() - t0:.2f} s, test loss "
               f"{float(res.test_loss[-1])!r}")
         return [t.cpu() for t in tree_leaves(res.final_params)]
 
+    sub, sub_data = sub_problem(sch, ue_data)
+    check(np.array_equal([len(d["labels"]) for d in sub_data],
+                         sch.problem.samples[sch.assoc[:, CPU_EDGE] > 0]),
+          "the sub-problem's weights are not its UEs' D_n")
     torch.set_num_threads(os.cpu_count() or 1)
-    gpu, cpu = final("cuda"), final("cpu")
-    cpu_moved = final("cpu", noise=SENSITIVITY_NOISE)
+    gpu, cpu = final(sub, sub_data, "cuda"), final(sub, sub_data, "cpu")
+    cpu_moved = final(sub, sub_data, "cpu", noise=SENSITIVITY_NOISE)
     diff = max(_max_err(a, b) for a, b in zip(gpu, cpu))
     spread = max(_max_err(a, b) for a, b in zip(cpu, cpu_moved))
     scale = max(float(t.abs().max()) for t in cpu)
-    print(f"  card vs CPU: max|diff| {diff:.3e}; CPU spread under a "
-          f"{SENSITIVITY_NOISE:g} init move {spread:.3e}; largest param "
-          f"{scale:.3e}")
+    print(f"  card vs CPU, edge {CPU_EDGE}'s {sub.num_ues} UEs: max|diff| "
+          f"{diff:.3e}; CPU spread under a {SENSITIVITY_NOISE:g} init move "
+          f"{spread:.3e}; largest param {scale:.3e}")
     check(spread > 0, "the perturbed CPU run moved")
     check(diff <= SENSITIVITY_FACTOR * spread,
           f"card vs CPU {diff:.3e} > {SENSITIVITY_FACTOR} x CPU spread "
           f"{spread:.3e}")
-    return gpu, spread
+    card_sync = final(sch, ue_data, "cuda")
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = final(sch, ue_data, "cuda")
+        moved = final(sch, ue_data, "cuda", noise=SENSITIVITY_NOISE)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    full_spread = max(_max_err(a, b) for a, b in zip(base, moved))
+    print(f"  the full cohort's spread on the card under a "
+          f"{SENSITIVITY_NOISE:g} init move: {full_spread:.3e}")
+    check(full_spread > 0, "the perturbed card run moved")
+    return card_sync, full_spread
 
 
 # ---------------------------------------------------------------------------
@@ -1578,10 +1640,10 @@ def phase_async(sch, ue_data, test, card_sync, spread) -> dict:
     diff = max(_max_err(a.cpu(), b) for a, b in
                zip(tree_leaves(res0.final_params), card_sync))
     print(f"  async max_staleness=0 vs the card's sync round: max|diff| "
-          f"{diff:.3e}; CPU spread (phase 4) {spread:.3e}")
+          f"{diff:.3e}; the card's spread (phase 4) {spread:.3e}")
     check(diff <= SENSITIVITY_FACTOR * spread,
-          f"async barrier vs sync {diff:.3e} > {SENSITIVITY_FACTOR} x CPU "
-          f"spread {spread:.3e}")
+          f"async barrier vs sync {diff:.3e} > {SENSITIVITY_FACTOR} x the "
+          f"card's spread {spread:.3e}")
     return dict(trace=tl.trace, times=res.times)
 
 
@@ -3127,6 +3189,8 @@ def mesh_rank(sch, ue_data, test, ckpt_dir) -> dict:
         fl.local(stacked), fl.local(batches), fl.local(weights)))
     out["spmd"] = dict(final=[t.cpu() for t in tree_leaves(got)], wall=wall,
                        launches=launched, coords=(fl.edge_index, fl.ue_index))
+    # phase 15 (d): launch.train's --mode hfl rounds on the same mesh
+    out["hfl"] = hfl_rank(fl)
     return out
 
 
@@ -3193,6 +3257,12 @@ def mesh_references(sch, ue_data, test, refs) -> dict:
     out["spmd"] = (base, max(
         max(_max_err(a, b) for a, b in zip(
             spmd_loop(sch, ue_data, SENSITIVITY_NOISE, seed), base))
+        for seed in SPREAD_SEEDS))
+    base = hfl_loop()
+    out["hfl"] = (base, max(
+        max(_max_err(a, b) for moved, ref in zip(
+            hfl_loop(SENSITIVITY_NOISE, seed), base)
+            for a, b in zip(moved, ref))
         for seed in SPREAD_SEEDS))
     out["wall"] = time.perf_counter() - t0
     return out
@@ -3399,8 +3469,276 @@ def _phase_mesh(sch, ue_data, test, refs) -> dict:
                              for x, y in zip(e["final"], base)))
     hold_model("(e) SPMD round vs the stacked loop on one card", diff,
                spread)
+    check_hfl(ranks, ref)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15
+# ---------------------------------------------------------------------------
+
+
+def phase_train() -> dict:
+    """Part (a): ``launch.train``'s CLI at its defaults on the card:
+    full-width StableLM-1.6B, AdamW, B=8, S=128, TRAIN_STEPS steps through
+    ``impl="xla_flash"``, with no kernel launch; then one warm step
+    profiled.  Frees the params before it returns."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args(TRAIN_ARGV)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_s = res["losses"], res["step_s"]
+    warm = float(np.median(step_s[1:]))
+    tokens = args.batch * args.seq
+    share = 6 * CLI_PARAMS * tokens / warm / FP32_FLOPS_PER_S
+    print(f"train CLI {TRAIN_ARGV}: {wall:.2f} s with init; losses "
+          f"{[round(x, 4) for x in losses]}; first step "
+          f"{step_s[0] * 1e3:.1f} ms, warm steps median {warm * 1e3:.1f} ms "
+          f"(min {min(step_s[1:]) * 1e3:.1f}, max "
+          f"{max(step_s[1:]) * 1e3:.1f}); {tokens / warm:.0f} tokens/s; "
+          f"6*N*tokens/step time = {share:.1%} of {FP32_FLOPS_PER_S:.3g} "
+          f"FLOP/s fp32; peak memory {peak} B; launches {launches}")
+    check(launches == expect(), f"training launched kernels: {launches}")
+    check(len(losses) == args.steps and bool(np.isfinite(losses).all()),
+          "finite training losses")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    n = sum(t.numel() for t in tree_leaves(res["params"]))
+    check(n == CLI_PARAMS, f"{n} trained parameters != {CLI_PARAMS}")
+
+    model = Model(get_config(args.arch), impl="xla_flash")
+    step = steps_lib.make_train_step(model, adamw(args.lr))
+    batch = TokenStream(model.cfg.vocab_size, seed=0).batch(args.batch,
+                                                            args.seq)
+    params, state = res["params"], res["opt_state"]
+    del res
+    wall_us, kernels = device_profile(lambda: step(params, state, batch))
+    if kernels:
+        busy = sum(e.self_device_time_total for e in kernels)
+        gemm = sum(e.self_device_time_total for e in kernels
+                   if "gemm" in e.key.lower())
+        print(f"profiled warm step: {wall_us / 1e3:.3f} ms wall (profiler "
+              f"on), device busy {busy / 1e3:.3f} ms = "
+              f"{busy / wall_us:.1%} of it and {busy / 1e6 / warm:.1%} of "
+              f"the unprofiled warm step; matrix products "
+              f"{gemm / 1e3:.3f} ms = {gemm / busy:.1%} of device time; "
+              f"{sum(e.count for e in kernels)} kernel launches")
+        print_top(kernels, 10)
+    else:
+        print("profiled warm step: the profiler recorded no device time")
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(warm_s=warm, peak=peak, share=share)
+
+
+def train_cut_step(model, params, batch) -> dict:
+    """Loss, gradients and the params after one AdamW step from
+    ``params`` (left as they were), all on the host."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim import adamw
+    (loss, _), grads = value_and_grad(model.loss, params, batch)
+    stepped = [t.clone() for t in tree_leaves(params)]
+    opt = adamw(TRAIN_LR)
+    opt.update(tree_leaves(grads), opt.init(stepped), stepped)
+    return dict(loss=loss.cpu(), grads=[g.cpu() for g in tree_leaves(grads)],
+                params=[t.cpu() for t in stepped])
+
+
+def phase_train_card_vs_cpu() -> None:
+    """Part (b): TRAIN_CUT_LAYERS layers of StableLM-1.6B at full width,
+    B=TRAIN_CUT_BATCH, S=TRAIN_CUT_SEQ, from the same init on the card and
+    the CPU: the loss, every gradient leaf and the params after one AdamW
+    step, each held to SENSITIVITY_FACTOR times the card's own spread
+    under a SENSITIVITY_NOISE move of the embedding (cuDNN's deterministic
+    algorithms).  The loss is one float32 number: its spread counts at
+    least one float32 step at its value, the least the move can show."""
+    cfg = dataclasses.replace(get_config(CLI_ARCH),
+                              num_layers=TRAIN_CUT_LAYERS)
+    card = Model(cfg, impl="xla_flash")
+    params = card.init(0)
+    batch = TokenStream(cfg.vocab_size, seed=0).batch(TRAIN_CUT_BATCH,
+                                                      TRAIN_CUT_SEQ)
+    reset_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = train_cut_step(card, params, batch)
+        moved = train_cut_step(card, perturbed(params), batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(counts() == expect(), f"training cut launched {counts()}")
+    cpu_params = to_cpu(params)
+    del params
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    cpu = train_cut_step(Model(cfg, impl="xla_flash", device="cpu"),
+                         cpu_params, batch)
+    print(f"  training cut, {TRAIN_CUT_LAYERS} layers at full width "
+          f"({sum(t.numel() for t in cpu['params'])} parameters), "
+          f"B={TRAIN_CUT_BATCH} S={TRAIN_CUT_SEQ}: CPU "
+          f"{time.perf_counter() - t0:.1f} s; loss card "
+          f"{float(got['loss'])!r}, CPU {float(cpu['loss'])!r}, moved "
+          f"{float(moved['loss'])!r}")
+    ulp = float(np.spacing(np.float32(cpu["loss"])))
+    diff = max_diff(got["loss"], cpu["loss"])
+    spread = max(max_diff(got["loss"], moved["loss"]), ulp)
+    print(f"  card vs CPU, training loss: max|diff| {diff:.3e}; spread "
+          f"(at least one float32 step, {ulp:.3e}) {spread:.3e} (ratio "
+          f"{diff / spread:.2f})")
+    check(diff <= SENSITIVITY_FACTOR * spread,
+          f"training loss: {diff:.3e} > {SENSITIVITY_FACTOR} x {spread:.3e}")
+    for what in ("grads", "params"):
+        hold_to_spread("card vs CPU", f"training {what} (one AdamW step)"
+                       if what == "params" else "training gradients",
+                       got[what], cpu[what], got[what], moved[what])
+
+
+def phase_refuse_autograd() -> None:
+    """Part (c): each kernel wrapper raises on CUDA inputs that require
+    grad (its output would carry no gradient) and launches under
+    ``torch.no_grad()``."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, kv = rand(1, 64, 4, 64), rand(1, 64, 2, 64)
+    sp = torch.arange(64, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(63, dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": (fa.flash_attention, (q, kv, kv)),
+        "rglru_scan": (rs.rglru_scan, (torch.rand(1, 64, 128, generator=gen,
+                                                  device="cuda"),
+                                       rand(1, 64, 128))),
+        "decode_attention": (lambda *t: da.decode_attention(*t, sp, pos),
+                             (q[:, -1:], kv, kv))}
+    for name, (fn, args) in calls.items():
+        leaf = args[0].clone().requires_grad_()
+        reset_counts()
+        try:
+            fn(leaf, *args[1:])
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        check("xla_flash" in raised and counts() == expect(),
+              f"{name} took inputs that require grad")
+        with torch.no_grad():
+            out = fn(leaf, *args[1:])
+        torch.cuda.synchronize()
+        check(counts() == expect(**{name: 1})
+              and bool(torch.isfinite(out).all()),
+              f"{name} under no_grad: launches {counts()}")
+        print(f"  {name}: raised under autograd ({raised[:60]}...); "
+              f"launched once under torch.no_grad()")
+
+
+def hfl_args():
+    from repro_torch.launch import train
+    return train.parse_args(HFL_ARGV + ["--device", "cuda"])
+
+
+def hfl_schedule(args):
+    return plan(HFLProblem(num_edges=args.edges,
+                           num_ues=args.edges * args.ues,
+                           epsilon=args.epsilon, seed=args.seed))
+
+
+def hfl_loop(noise=0.0, noise_seed=1) -> list:
+    """Part (d)'s reference: ``--mode hfl``'s rounds on the card as a
+    stacked loop of its 2 x 2 UEs: b* times a* vmapped GD steps
+    (``clients.gd_local_steps`` over ``model.loss``) and the edge means,
+    then the cloud mean (``stacked_weighted_average``: K1, K2), each leaf
+    moved by ``noise`` relative (a draw of ``noise_seed``) if asked.
+    Returns each cloud event's params (row 0, on the host)."""
+    from repro_torch.fl import clients, spmd
+    from repro_torch.fl.aggregate import stacked_weighted_average
+    from repro_torch.fl.flatten import FlatLayout
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_map
+    args = hfl_args()
+    sch = hfl_schedule(args)
+    e, u = args.edges, args.ues
+    model = Model(get_config(args.arch, smoke=True), impl="xla_flash",
+                  remat=False)
+    params = model.init(args.seed)
+    if noise:
+        gen = torch.Generator().manual_seed(noise_seed)
+        params = tree_map(lambda v: v * (1 + noise * torch.randn(
+            v.shape, generator=gen).to(v.device)), params)
+    stacked = spmd.stack_for_mesh(params, e, u)
+    layout = FlatLayout.of(stacked)
+    p = layout.unravel(layout.ravel(stacked))
+    w = torch.as_tensor(sch.problem.samples[:e * u], dtype=torch.float32,
+                        device="cuda")
+    gid = torch.arange(e, device="cuda").repeat_interleave(u)
+    gd = clients.gd_local_steps(model.loss, sch.a, args.lr)
+    stream = TokenStream(model.cfg.vocab_size, seed=0)
+    out = []
+    for r in range(args.rounds):
+        batch = train.batch_for(model, stream, args.batch, args.seq, r)
+        stacked_batch = {k: v[None].expand((e * u,) + tuple(v.shape))
+                         for k, v in batch.items()}
+        for _ in range(sch.b):
+            gd(p, stacked_batch)
+            p = stacked_weighted_average(p, w, group_ids=gid, num_groups=e)
+        p = stacked_weighted_average(p, w)
+        # copies: the next round's GD steps write p in place
+        out.append([t[0].cpu().clone() for t in tree_leaves(p)])
+    return out
+
+
+def hfl_rank(fl) -> dict:
+    """Part (d) on a rank of phase 14's ('edge', 'ue') mesh:
+    ``launch.train``'s ``--mode hfl`` rounds (``hfl_rounds``), counted."""
+    from repro_torch.launch import train
+    args = hfl_args()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rounds = [dict(loss=loss, clock=clock,
+                   final=[t.cpu() for t in tree_leaves(params)])
+              for _, clock, loss, params in train.hfl_rounds(
+                  args, hfl_schedule(args), fl, args.rounds)]
+    torch.cuda.synchronize()
+    return dict(rounds=rounds, wall=time.perf_counter() - t0,
+                launches=counts())
+
+
+def check_hfl(ranks, ref) -> None:
+    """Part (d)'s checks, in phase 14's parent."""
+    args = hfl_args()
+    sch = hfl_schedule(args)
+    base, spread = ref["hfl"]
+    for r in ranks:
+        h = r["hfl"]
+        print(f"  (15d) rank {r['rank']}: --mode hfl at a*={sch.a} b*={sch.b}"
+              f", {args.rounds} cloud rounds in {h['wall']:.3f} s; losses "
+              f"{[round(x['loss'], 4) for x in h['rounds']]}; launches "
+              f"{h['launches']}")
+        check(h["launches"] == expect(), f"(15d) rank {r['rank']} launched "
+                                         f"{h['launches']}")
+        check(all(np.isfinite(x["loss"]) for x in h["rounds"]),
+              "(15d) finite losses")
+    diff = 0.0
+    for i in range(args.rounds):
+        first = ranks[0]["hfl"]["rounds"][i]["final"]
+        for r in ranks[1:]:
+            check(all(torch.equal(x, y) for x, y in
+                      zip(first, r["hfl"]["rounds"][i]["final"])),
+                  f"(15d) cloud event {i + 1}: rank {r['rank']}'s params "
+                  f"differ from rank 0's")
+        diff = max(diff, max(_max_err(x, y) for x, y in
+                             zip(first, base[i])))
+    hold_model("(15d) --mode hfl on 4 ranks vs the stacked loop on one "
+               "card", diff, spread)
 
 
 # ---------------------------------------------------------------------------
@@ -3607,6 +3945,14 @@ def main(argv=None) -> int:
         "async": async_run, "service": stream_service, **fault_runs})
     for name in KERNELS:
         launches[name] += meshed[name]
+
+    print("== phase 15: the transformer's training half (its part (d) ran "
+          "in phase 14's ranks)")
+    t0 = time.perf_counter()
+    phase_train()
+    phase_train_card_vs_cpu()
+    phase_refuse_autograd()
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s on {card_line()}")
     print("kernels: " + ", ".join(KERNELS))

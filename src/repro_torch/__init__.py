@@ -13,6 +13,9 @@ edge accumulator (``fl.aggregate.StreamingEdgeAccumulator``) folds.
 its slab with a hand-written kernel before one all-reduce.  The
 transformer stack's serving path (``models.model.Model``,
 ``launch.serve``) serves RecurrentGemma-9B with hand-written CUDA kernels
-for its prefill attention and its RG-LRU scan.  Entry points run on the
-card unless given ``device="cpu"``.
+for its prefill attention and its RG-LRU scan; its training half
+(``Model.loss``, ``optim``, ``launch.steps.make_train_step``,
+``launch.train``, ``fl.spmd.make_local_sgd_train_step``) trains through
+the differentiable ``impl="xla_flash"`` route, as the reference does.
+Entry points run on the card unless given ``device="cpu"``.
 """

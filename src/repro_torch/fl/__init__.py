@@ -19,7 +19,8 @@ ranks; and the SPMD backend (one UE a rank).
   (``repro_torch.launch.service``) and a ``params`` setter for restoring
   checkpointed replicas.
 * ``spmd``      — the schedule as collectives on an ('edge', 'ue') mesh
-  of ranks (``make_hfl_cloud_round``).
+  of ranks (``make_hfl_cloud_round``), and the HFL-scheduled train step
+  of the transformer substrate (``make_local_sgd_train_step``).
 """
 from repro_torch.fl.aggregate import (StreamingEdgeAccumulator,
                                       flat_cloud_aggregate,

@@ -6,9 +6,10 @@ mean over the leading UE axis of EVERY leaf.  Packing the stacked
 parameters into one contiguous ``(N, F_total)`` fp32 buffer turns each
 event into a single kernel launch over the whole model.
 
-Parameters are nested dicts of tensors.  The leaf order is
-``jax.tree.flatten``'s, which visits dict keys in SORTED order at every
-level, so the buffer is column for column the JAX package's.  (PyTorch's
+Parameters are nested dicts (and lists, as the transformer stack's
+``"layers"``) of tensors.  The leaf order is ``jax.tree.flatten``'s, which
+visits dict keys in SORTED order at every level and list items in order,
+so the buffer is column for column the JAX package's.  (PyTorch's
 own pytrees keep insertion order instead, which would not match.)
 
 Sharded layout (``ShardedFlatLayout``): on a ('data', 'model') mesh of
@@ -40,17 +41,34 @@ import torch
 
 
 def _items(tree, prefix=()):
-    """(path, leaf) pairs in ``jax.tree.flatten`` order: sorted dict keys."""
+    """(path, leaf) pairs in ``jax.tree.flatten`` order: sorted dict keys,
+    list items in order (a list's path entries are ints)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _items(v, prefix + (i,))
     else:
         yield prefix, tree
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, in ``jax.tree.flatten`` order."""
+    """The leaves of nested dicts and lists, in ``jax.tree.flatten``
+    order."""
     return [leaf for _, leaf in _items(tree)]
+
+
+def tree_flatten(tree) -> tuple:
+    """(paths, leaves) of nested dicts and lists, in ``jax.tree.flatten``
+    order; ``tree_unflatten(paths, leaves)`` rebuilds the tree."""
+    items = list(_items(tree))
+    return [p for p, _ in items], [leaf for _, leaf in items]
+
+
+def tree_unflatten(paths, leaves):
+    """The tree of ``leaves`` at ``paths`` (``tree_flatten``'s inverse)."""
+    return _unflatten(paths, leaves)
 
 
 def _unflatten(paths, leaves) -> dict:
@@ -60,7 +78,18 @@ def _unflatten(paths, leaves) -> dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    return out
+    return _lists(out)
+
+
+def _lists(node):
+    """The nodes of ``_unflatten``'s dicts whose keys are list indices,
+    back as lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
 
 
 @dataclasses.dataclass(frozen=True)

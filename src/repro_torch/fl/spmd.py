@@ -15,6 +15,11 @@ of size E*U); under the port's multi-controller mesh each rank passes its
 own UE's ``(1, ...)`` slab (``FLMesh.local``) and gets its slab back.
 Each rank's replica drifts between aggregations (local-SGD semantics, as
 Alg. 1).
+
+``make_local_sgd_train_step`` is the same schedule for the transformer
+substrate: an optimizer step on each rank's own gradient, the params
+averaged over a ``launch.mesh.AggMesh``'s 'data' group at edge and cloud
+boundaries.
 """
 from __future__ import annotations
 
@@ -24,17 +29,18 @@ import torch
 
 from repro_torch.fl import clients
 from repro_torch.fl.aggregate import psum_weighted_mean
-from repro_torch.fl.flatten import FlatLayout
+from repro_torch.fl.flatten import (FlatLayout, tree_flatten, tree_leaves,
+                                    tree_unflatten)
 
 
-def stack_for_mesh(params: dict, num_edges: int, ues_per_edge: int) -> dict:
-    """Replicate one parameter dict into the ``(E*U, ...)`` stacked
-    layout (views of ``params``' leaves)."""
+def stack_for_mesh(params, num_edges: int, ues_per_edge: int):
+    """Replicate one parameter tree (nested dicts and lists) into the
+    ``(E*U, ...)`` stacked layout (views of ``params``' leaves)."""
     n = num_edges * ues_per_edge
-    return {k: (stack_for_mesh(v, num_edges, ues_per_edge)
-                if isinstance(v, dict) else
-                torch.as_tensor(v).unsqueeze(0).expand((n,) + tuple(v.shape)))
-            for k, v in params.items()}
+    paths, leaves = tree_flatten(params)
+    return tree_unflatten(paths, [
+        torch.as_tensor(v).unsqueeze(0).expand((n,) + tuple(v.shape))
+        for v in leaves])
 
 
 def make_hfl_cloud_round(loss_fn: Callable, mesh, *, a: int, b: int,
@@ -93,16 +99,58 @@ def hfl_spmd_round(loss_fn: Callable, mesh, stacked_params: dict,
 
 
 def make_local_sgd_train_step(model, optimizer, *, mesh, a: int, b: int):
-    """The HFL-scheduled train step of the transformer substrate: needs
-    ``Model.loss`` and the optimizers, the training half that ROADMAP
-    Queue 1 item 14 ports."""
-    raise NotImplementedError(
-        "make_local_sgd_train_step needs the transformer stack's training "
-        "half (Model.loss, the optimizers), not ported to repro_torch yet "
-        "(ROADMAP Queue 1 item 14)")
+    """HFL-scheduled train step for the transformer substrate.
+
+    Standard data-parallel training syncs gradients EVERY step; under the
+    paper's schedule each data-parallel group (edge) lets replicas drift
+    for ``a`` steps, averages params within the pod every ``a`` steps and
+    across pods every ``a*b``: the per-step all-reduce over the slow axis
+    becomes a 1/(a*b) amortized one.  ``plan_from_roofline`` optimizes
+    (a, b) for this.
+
+    Every step applies the rank's local (unsynced) gradient through
+    ``optimizer``; ``sync="edge"`` then averages the params over the
+    mesh's 'data' group, ``sync="cloud"`` over 'pod' and 'data' where the
+    mesh has them (the port's meshes, one host, have no 'pod' axis), and
+    ``None`` or ``"none"`` not at all.  Each average is ONE all-reduce of
+    the raveled params (``FlatLayout``; ``psum_weighted_mean`` with unit
+    weights), not one per leaf.  ``mesh`` is a
+    ``repro_torch.launch.mesh.AggMesh``; every rank of a group must step
+    together.  Returns ``step_fn(params, opt_state, batch, sync) ->
+    (params, opt_state, metrics)``, writing params and state in place."""
+    del a, b        # the caller's step index picks each step's ``sync``
+    from repro_torch.launch.steps import value_and_grad
+
+    axes = {"edge": ("data",),
+            "cloud": tuple(ax for ax in ("pod", "data")
+                           if ax in mesh.shape)}
+
+    def wavg(params, group) -> None:
+        layout = FlatLayout.of_single(params)
+        flat = layout.ravel_single(params)
+        mean = psum_weighted_mean(flat, torch.ones((), device=flat.device),
+                                  group)
+        with torch.no_grad():
+            for p, m in zip(tree_leaves(params),
+                            tree_leaves(layout.unravel_single(mean))):
+                p.copy_(m)
+
+    def step_fn(params, opt_state, batch, sync=None):
+        if sync not in (None, "none", "edge", "cloud"):
+            raise ValueError(f"sync must be None, 'none', 'edge' or "
+                             f"'cloud', got {sync!r}")
+        (loss, metrics), grads = value_and_grad(model.loss, params, batch)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        if sync in axes:
+            wavg(params, getattr(mesh, "_".join(axes[sync]) + "_group"))
+        metrics = dict(metrics)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return step_fn
 
 
-def _to(tree: dict, device) -> dict:
-    return {k: (_to(v, device) if isinstance(v, dict) else
-                torch.as_tensor(v, device=device))
-            for k, v in tree.items()}
+def _to(tree, device):
+    paths, leaves = tree_flatten(tree)
+    return tree_unflatten(paths, [torch.as_tensor(v, device=device)
+                                  for v in leaves])

@@ -14,4 +14,6 @@
   the decode attention of the transformer stack
   (``csrc/decode_attention.cu``).
 * ``build``          — ``nvcc`` build at first use, bound with ``ctypes``.
+* ``grad_guard``     — the attention and scan wrappers' refusal of
+  autograd on the card (the kernels have no backward).
 """

@@ -13,8 +13,10 @@ counts if ``0 <= slot_pos <= pos`` and, with a window,
 
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
-it never falls back.  ``launch_counts`` counts the wrapper's launches, so
-a run can show that its decode steps went through the kernel.
+it never falls back.  The kernel has no backward: on the card the wrapper
+raises on inputs that require grad and under ``torch.func`` transforms
+(``grad_guard``).  ``launch_counts`` counts the wrapper's launches, so a
+run can show that its decode steps went through the kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad_guard import refuse_autograd
 from repro_torch.kernels.hier_aggregate import NUM_SMS
 
 NEG_INF = -2.0e38
@@ -211,6 +214,7 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
         _check(q, k_cache, v_cache, slot_pos, pos)
         return decode_attention_plain(q, k_cache, v_cache, slot_pos, pos,
                                       window=window)
+    refuse_autograd("decode_attention", q, k_cache, v_cache)
     key = (q.shape, q.stride(), q.dtype, q.device, k_cache.shape,
            k_cache.stride(), k_cache.dtype, k_cache.device, v_cache.shape,
            v_cache.stride(), v_cache.dtype, v_cache.device, slot_pos.shape,

@@ -11,7 +11,9 @@ KV head ``h // (H // K)``); query row ``i`` sits at position
 
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
-it never falls back.  ``launch_counts`` counts the launches, so a run can
+it never falls back.  The kernel has no backward: on the card the wrapper
+raises on inputs that require grad and under ``torch.func`` transforms
+(``grad_guard``).  ``launch_counts`` counts the launches, so a run can
 show that its attention layers went through the kernel.
 
 On the card a block serves the whole query group of one (batch, KV head):
@@ -26,6 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad_guard import refuse_autograd
 from repro_torch.kernels.hier_aggregate import NUM_SMS
 
 NEG_INF = -2.0e38
@@ -154,6 +157,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if hd % 4 or not 0 < hd <= MAX_HEAD_DIM:

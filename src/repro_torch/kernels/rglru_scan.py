@@ -5,7 +5,9 @@ and its plain version.  Replaces the TPU kernel ``rglru_scan_blocked``
 
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
-it never falls back.  ``launch_counts`` counts the launches, so a run can
+it never falls back.  The kernel has no backward: on the card the wrapper
+raises on inputs that require grad and under ``torch.func`` transforms
+(``grad_guard``).  ``launch_counts`` counts the launches, so a run can
 show that its RG-LRU layers went through the kernel.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad_guard import refuse_autograd
 
 TILE = 128                     # channels per block, as in csrc/rglru_scan.cu
 NUM_SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -78,6 +81,7 @@ def rglru_scan(a, b):
         return rglru_scan_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
+    refuse_autograd("rglru_scan", a, b)
     for name, t in (("a", a), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -139,9 +139,11 @@ class FLMesh:
 
     def local(self, x):
         """This rank's ``(1, ...)`` slab of a stacked ``(E*U, ...)`` tensor,
-        array or nested dict of them, on the mesh's device."""
+        array or nested dicts and lists of them, on the mesh's device."""
         if isinstance(x, dict):
             return {k: self.local(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [self.local(v) for v in x]
         return torch.as_tensor(x[self.rank:self.rank + 1],
                                device=self.device)
 

@@ -1,13 +1,21 @@
 """GQA self-attention: full-sequence (train / prefill) and decode with a
 ring KV cache.  Ported from the JAX package's ``repro/models/attention.py``.
 
-Two implementations of the score/softmax/value contraction, full-sequence
-(train / prefill) and decode (one query over the ring cache):
-  * ``kernel`` — ``kernels.flash_attention`` and
-                 ``kernels.decode_attention``: the CUDA kernels on the
-                 card, their plain versions on the CPU (the default);
-  * ``naive``  — dense scores from positions, and the reference decode's
-                 own formula; the oracle.
+Three implementations of the score/softmax/value contraction,
+full-sequence (train / prefill) and decode (one query over the ring
+cache):
+  * ``kernel``    — ``kernels.flash_attention`` and
+                    ``kernels.decode_attention``: the CUDA kernels on the
+                    card, their plain versions on the CPU (the default).
+                    The kernels have no backward: on the card they refuse
+                    inputs that require grad;
+  * ``xla_flash`` — the reference's training route: blocked online-softmax
+                    attention in plain PyTorch over key blocks of 1,024
+                    (``xla_flash_attention``), differentiable by autograd
+                    and ``torch.func``; decode takes the reference
+                    decode's own formula;
+  * ``naive``     — dense scores from positions, and the reference decode's
+                    own formula; the oracle.
 Supports causal, sliding-window and bidirectional masking, GQA head
 groups, partial RoPE and qk-norm.  Cross attention (encoder-decoder) is
 not ported yet (ROADMAP Queue 1 item 14).
@@ -69,6 +77,46 @@ def naive_attention(q, k, v, q_pos, k_pos, causal=True, window=0):
     return out.reshape(B, Sq, H, hd)
 
 
+def xla_flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
+                        block=1024):
+    """Blocked online-softmax attention over key blocks of ``block``.
+
+    q: (B,Sq,H,hd); k,v: (B,Sk,K,hd); positions int32 (Sq,)/(Sk,).
+    Returns (B,Sq,H,hd).  Every block is visited (masking only), as in the
+    reference's ``lax.scan``; no tensor is written in place, so autograd
+    and ``torch.func`` transforms go through.  The last block holds the
+    ``Sk % block`` keys left, where the reference pads k and v with zeros
+    at position -1e9: its causal and bidirectional masks let a query see
+    those pads, so it differs from dense attention when ``Sk > block`` is
+    not a multiple of ``block`` (never at the training path's S <= 1,024
+    or multiples of it).
+    """
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    g = H // K
+    blk = min(block, Sk)
+    qg = (q.reshape(B, Sq, K, g, hd) * (1.0 / math.sqrt(hd))).to(q.dtype)
+    m_i = torch.full((B, K, g, Sq), NEG_INF, dtype=torch.float32,
+                     device=q.device)
+    l_i = torch.zeros((B, K, g, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, g, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for s0 in range(0, Sk, blk):
+        kb, vb = k[:, s0:s0 + blk], v[:, s0:s0 + blk]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kb).float()
+        msk = _mask(q_pos, k_pos[s0:s0 + blk], causal, window)  # (Sq, blk)
+        s = s.masked_fill(~msk, NEG_INF)
+        m_new = torch.maximum(m_i, s.amax(-1))
+        alpha = torch.exp(m_i - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_i = l_i * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p.to(vb.dtype), vb).float()
+        m_i = m_new
+    out = acc / torch.clamp_min(l_i, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def _project_qkv(cfg, p, x, positions, inv_freqs):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -84,9 +132,13 @@ def _project_qkv(cfg, p, x, positions, inv_freqs):
 def _attend(q, k, v, positions, causal, window, impl):
     if impl == "kernel":
         return fa.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "xla_flash":
+        return xla_flash_attention(q, k, v, positions, positions, causal,
+                                   window)
     if impl == "naive":
         return naive_attention(q, k, v, positions, positions, causal, window)
-    raise ValueError(f"impl must be 'kernel' or 'naive', got {impl!r}")
+    raise ValueError(f"impl must be 'kernel', 'xla_flash' or 'naive', got "
+                     f"{impl!r}")
 
 
 def self_attention(cfg, p, x, *, causal=True, window=0, impl="kernel"):
@@ -139,7 +191,7 @@ def decode_self_attention(cfg, p, x, cache, *, window=0, impl="kernel",
     if impl == "kernel":
         o = da.decode_attention(q, new_k, new_v, new_slot_pos, pos,
                                 window=window)
-    elif impl == "naive":
+    elif impl in ("naive", "xla_flash"):
         H = cfg.num_heads
         K = cfg.num_kv_heads
         g = H // K
@@ -153,7 +205,8 @@ def decode_self_attention(cfg, p, x, cache, *, window=0, impl="kernel",
         pr = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgqs,bskh->bqkgh", pr, new_v).reshape(B, 1, H, hd)
     else:
-        raise ValueError(f"impl must be 'kernel' or 'naive', got {impl!r}")
+        raise ValueError(f"impl must be 'kernel', 'xla_flash' or 'naive', "
+                         f"got {impl!r}")
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     new_cache = {"k": new_k, "v": new_v, "slot_pos": new_slot_pos,
                  "pos": pos + 1}

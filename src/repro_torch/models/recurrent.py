@@ -3,7 +3,9 @@ ported from the JAX package's ``repro/models/recurrent.py``.
 
 Prefill runs the linear recurrence through ``kernels.rglru_scan`` (the
 CUDA kernel on the card, its plain version on the CPU) or, with
-``impl="naive"``, through the plain version directly; decode is a
+``impl="naive"`` or ``"xla_flash"`` (the training route, as the
+reference maps ``xla_flash`` to its associative scan), through the plain
+version directly; decode is a
 single-step state update.  The xLSTM cells (``mlstm``, ``slstm``) are not
 ported yet (ROADMAP Queue 1 item 14).
 """
@@ -64,9 +66,9 @@ def apply_rglru(cfg, p, x, impl: str = "kernel", return_state: bool = False):
     """Full-sequence RG-LRU block.  x: (B,S,D) -> (B,S,D).
 
     ``impl="kernel"`` runs the scan through ``kernels.rglru_scan``;
-    ``"naive"`` through its plain version.  ``return_state=True`` also
-    returns the decode continuation state {"h": final hidden (B,D) fp32,
-    "conv": conv history (B,W-1,D)}.
+    ``"naive"`` and ``"xla_flash"`` through its plain version.
+    ``return_state=True`` also returns the decode continuation state
+    {"h": final hidden (B,D) fp32, "conv": conv history (B,W-1,D)}.
     """
     gate = act_fn("gelu")(x @ p["w_gate_branch"])
     main = x @ p["w_main"]
@@ -74,10 +76,11 @@ def apply_rglru(cfg, p, x, impl: str = "kernel", return_state: bool = False):
     a, bb = _rglru_gates(p, xi.float())
     if impl == "kernel":
         h = scan.rglru_scan(a, bb)
-    elif impl == "naive":
+    elif impl in ("naive", "xla_flash"):
         h = scan.rglru_scan_plain(a, bb)
     else:
-        raise ValueError(f"impl must be 'kernel' or 'naive', got {impl!r}")
+        raise ValueError(f"impl must be 'kernel', 'xla_flash' or 'naive', "
+                         f"got {impl!r}")
     y = (h.to(x.dtype) * gate) @ p["w_out"]
     if return_state:
         # clones: views would keep the whole (B, S, D) h and conv input alive

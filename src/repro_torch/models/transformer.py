@@ -1,6 +1,8 @@
 """Composable transformer stack, ported from the JAX package's
 ``repro/models/transformer.py`` for the layer kinds ``attn``,
-``local_attn`` and ``rglru``, in both of its layouts:
+``local_attn`` and ``rglru``: the training forward (``apply_stack``,
+optionally rematerialised layer by layer), prefill and decode, in both of
+its layouts:
 
 * ``"layers"``  — heterogeneous stacks (RecurrentGemma): a list of
   per-layer parameter dicts and states, one python loop;
@@ -17,9 +19,11 @@ encoder-decoder stack.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
@@ -48,11 +52,27 @@ def _check_stack(cfg):
         raise _not_ported("the encoder-decoder stack")
 
 
+def check_config(cfg):
+    """Raise ``NotImplementedError`` if ``cfg`` has a part not ported yet."""
+    _check_stack(cfg)
+    for kind in set(cfg.layer_kinds):
+        _check_kind(cfg, kind)
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked (``"scanned"``) tree: views, no copies."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked (``"scanned"``) tree, each leaf
+    unbound along its layer axis (``torch.unbind``)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _window(cfg, kind: str) -> int:
@@ -117,6 +137,31 @@ def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel"):
                                 impl=impl, return_state=True)
     x = x + h
     return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x)), st
+
+
+def apply_stack(cfg, p, x, *, impl="kernel", remat=False):
+    """Full-sequence stack (the training forward).  Returns (x, aux); aux
+    is the MoE load-balancing loss, 0 here (MoE layers raise).
+
+    Both layouts loop over the layers in python, the ``"scanned"`` one over
+    its stacked leaves unbound along the layer axis (``_unbind``: under
+    autograd each leaf's gradient is then one stack of the layers'
+    gradients; views ``[l]`` would each add a zero-filled gradient of the
+    whole stacked leaf).  ``remat=True`` runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), the reference's
+    ``jax.checkpoint`` per layer: the backward recomputes the layer's
+    activations instead of keeping them.  It changes memory, not the
+    numbers; ``torch.func`` transforms do not take it."""
+    _check_stack(cfg)
+    if cfg.homogeneous:
+        layers = [("attn", lp) for lp in _unbind(p["scanned"],
+                                                  cfg.num_layers)]
+    else:
+        layers = list(zip(cfg.layer_kinds, p["layers"]))
+    for kind, lp in layers:
+        fn = functools.partial(apply_block, cfg, kind, impl=impl)
+        x = checkpoint(fn, lp, x, use_reentrant=False) if remat else fn(lp, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill_stack(cfg, p, x, *, cache_len, impl="kernel"):

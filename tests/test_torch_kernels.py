@@ -605,3 +605,46 @@ def test_cuda_attention_and_scan_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         da.decode_attention(q, kv, kv, sp, pos.cpu())
     assert da.launch_counts["decode_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "rglru_scan",
+                                    "decode_attention"])
+def test_cuda_kernels_refuse_autograd(cuda, kernel):
+    """The kernels have no backward: on inputs that require grad, and under
+    a ``torch.func`` transform, each wrapper raises before it launches
+    (its output would carry no ``grad_fn``, so the inputs' gradients would
+    be silently zero); under ``torch.no_grad()`` it launches."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rs
+    mod = {"flash_attention": fa, "rglru_scan": rs,
+           "decode_attention": da}[kernel]
+    if kernel == "flash_attention":
+        args = [torch.randn(1, 16, 4, 8, device=cuda),
+                torch.randn(1, 16, 2, 8, device=cuda),
+                torch.randn(1, 16, 2, 8, device=cuda)]
+        call = fa.flash_attention
+    elif kernel == "rglru_scan":
+        args = [torch.rand(1, 16, 8, device=cuda),
+                torch.randn(1, 16, 8, device=cuda)]
+        call = rs.rglru_scan
+    else:
+        args = [torch.randn(1, 1, 4, 8, device=cuda),
+                torch.randn(1, 16, 2, 8, device=cuda),
+                torch.randn(1, 16, 2, 8, device=cuda)]
+        sp = torch.arange(16, dtype=torch.int32, device=cuda)
+        pos = torch.tensor(15, dtype=torch.int32, device=cuda)
+        call = lambda *t: da.decode_attention(*t, sp, pos)  # noqa: E731
+    before = mod.launch_counts[kernel]
+    grad_args = [args[0].clone().requires_grad_()] + args[1:]
+    with pytest.raises(RuntimeError, match="xla_flash"):
+        call(*grad_args)
+    with pytest.raises(RuntimeError, match="torch.func"):
+        torch.func.vmap(lambda x: call(*([x[None]] + args[1:])))(args[0])
+    assert mod.launch_counts[kernel] == before
+    with torch.no_grad():
+        out = call(*grad_args)
+    torch.cuda.synchronize()
+    assert mod.launch_counts[kernel] == before + 1
+    assert out.grad_fn is None and torch.isfinite(out).all()

@@ -13,8 +13,8 @@ meshes of gloo ranks (CPU), against the JAX package.
 * The port's single-device stacked loop, which ``chip_smoke.py`` holds
   the SPMD round to on the card, equals the reference's loop within 1e-5.
 * ``make_fl_mesh``'s coordinates and checks, ``stack_for_mesh``,
-  ``hfl_spmd_round``, and ``make_local_sgd_train_step`` raising until the
-  transformer's training half is ported.
+  ``hfl_spmd_round``, and ``make_local_sgd_train_step``'s check of its
+  ``sync`` argument.
 
 The ranks run the module-level ``_*rank`` functions, one spawn per world
 size, each with its own timeout; JAX is imported only inside the tests.
@@ -229,12 +229,20 @@ def test_port_stacked_loop_matches_reference(init, reference, solver):
 
 
 def test_stack_for_mesh_and_unported_train_step():
-    params = {"w": torch.ones(3, 2), "b": {"c": torch.zeros(2)}}
+    """``stack_for_mesh`` over dicts and lists; the local-SGD train step,
+    ported with the transformer's training half (its mesh runs:
+    ``tests/test_torch_train_spmd.py``), rejects an unknown sync before
+    it computes anything."""
+    params = {"w": torch.ones(3, 2), "b": {"c": torch.zeros(2)},
+              "layers": [{"d": torch.ones(4)}]}
     stacked = spmd.stack_for_mesh(params, 2, 3)
     assert stacked["w"].shape == (6, 3, 2)
     assert stacked["b"]["c"].shape == (6, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        spmd.make_local_sgd_train_step(None, None, mesh=None, a=2, b=2)
+    assert stacked["layers"][0]["d"].shape == (6, 4)
+    step = spmd.make_local_sgd_train_step(None, None, mesh=mock.Mock(
+        shape={"data": 2, "model": 1}), a=2, b=2)
+    with pytest.raises(ValueError, match="sync"):
+        step({}, (), {}, "pod")
     with pytest.raises(ValueError, match="solver"):
         spmd.make_hfl_cloud_round(_loss, None, a=1, b=1, lr=0.1,
                                   solver="adam")
