@@ -7,7 +7,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 ``segment_sum`` and runs phase 6, through the wrappers alone; ``python3
 chip_smoke.py --time-rounds`` times phase 3's warm sync round and phase
 5's async updates alone.  Copied into an older tree, either times that
-tree's code, so two trees compare on one card in one call.)
+tree's code, so two trees compare on one card in one call.  ``python3
+chip_smoke.py --probe-profiler`` counts, over 200 ``torch.profiler``
+sessions in a fresh process, those that record no kernel of phase 2's 9
+``segment_aggregate`` calls.)
+
+Every phase prints its seconds (``phase N: x s``).
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -23,7 +28,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    function) and its bound.  The four aggregation kernels also bit for
    bit between two launches (``segment_sum``: the chunk sum formed first,
    then added), on row views from an odd row, one kernel a call at every
-   case's shape (``torch.profiler``); ``segment_aggregate`` and
+   case's shape (each wrapper's ``launch_counts`` up by exactly one a
+   call, and ``torch.profiler`` recording only its kernel, at most once a
+   call, after a throwaway first session; a session that records no
+   kernel is rerun, at most 3 times, each printed, and never passes);
+   ``segment_aggregate`` and
    ``cloud_aggregate`` at phases 3 and 5's cohort (with each wrapper's
    host time a call and one call's device time, and with half and twice
    the warps rule's choice), ``segment_aggregate`` also at phase 9's
@@ -49,7 +58,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch count over exactly that run must equal what the schedule needs.
    Then one warm round timed and one profiled (where the device time goes).
 4. The card against the CPU: one cloud round from the same init on both,
-   on edge 0's 20 UEs at phase 3's (a*, b*), within SENSITIVITY_FACTOR
+   on edge 0's first 10 UEs at phase 3's (a*, b*), within SENSITIVITY_FACTOR
    times the CPU's spread there; then the full cohort's round on the card
    and its spread on the card (cuDNN's deterministic algorithms), phase
    5's references.
@@ -70,9 +79,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    26 ``rglru_scan`` launches in prefill, 12 ``decode_attention`` launches
    per decode step; a profiled prefill and decode step (device time and
    kernel count by kernel); the kernel route
-   against the plain route (``impl="naive"``) on prefill and
-   teacher-forced decode logits, within a multiple of the plain route's
-   spread under a 1e-7 perturbation of the embedding; one pattern cycle
+   against the plain route (``impl="naive"``) on prefill and 8
+   teacher-forced decode steps' logits, within a multiple of the plain
+   route's spread under a 1e-7 perturbation of the embedding; one pattern cycle
    (3 layers) at B=1, S=2,560 on the card against the CPU, prefill and 4
    teacher-forced decode steps.
 8. Serving the homogeneous dense stack (the ``"scanned"`` layout) at full
@@ -138,7 +147,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    algorithms: ``HFLService`` over a full-width LeNet async simulator on
    phase 3's problem (max_staleness 4, the segments of the JAX package's
    ``tools/crash_smoke.py``), 40 events checkpointed every 10 (the burst
-   drives shedding); a service resumed from the event-20 checkpoint ends
+   drives shedding); a service resumed from the event-30 checkpoint ends
    with the same trace, its model within 1e-6; a ``merge_stream_chunk=32``
    run (``segment_sum`` once a chunk, the accumulator on the card) whose
    rows are the direct reads' within 1e-5 and whose trace is the first
@@ -171,7 +180,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    single-device run on the card by phase 9's rule (the stacked loop of
    ``clients.gd_local_steps`` and ``stacked_weighted_average`` for (e));
    the references not run by phases 5, 11 and 13 and the spread runs run
-   in this process while the ranks run.  After (e) the ranks also run
+   in this process while the ranks run (a spread from two init moves for
+   async, from one for the others).  After (e) the ranks also run
    phase 15's part (d).
 15. The transformer's training half, with no kernel launch: (a)
    ``repro_torch.launch.train``'s CLI at its defaults on the card,
@@ -188,7 +198,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    --edges 2 --ues 2 --smoke --rounds 2`` on the 2 x 2 mesh: the ranks'
    params equal after each cloud event and held to the single-device
    stacked loop on the card by phase 14's rule.
-16. Kernel records as JSON (``launches``: each path's count, read around
+16. The MoE FFN and the xLSTM kinds.  (a) ``repro_torch.launch.serve``
+   at full-width Qwen1.5-MoE-A2.7B (24 layers, 60 routed experts top-4
+   and 4 shared, MHA 16 over 16 heads of 128; 14,315,636,736 fp32
+   parameters from seed 0), B=2, a 4,096-token prompt, 32 greedy tokens:
+   24 ``flash_attention`` launches in prefill and 24 ``decode_attention``
+   a decode step, no other; (b) the same model step by step, timed,
+   counted and profiled (the MoE's route, dispatch, expert products and
+   combine annotated), peak memory under 80 GB; (c) its kernel route
+   against the plain route as phase 7's, with the routes pinned to the
+   kernel run's (``PinnedRoutes``: a rounding-sized move can swap the 4th
+   and 5th expert of a token; the flips it would have made unpinned and
+   their smallest router margin printed); (d) 3 layers of it at full
+   width, B=1, S=320 + 4 decode steps, card against the CPU, pinned; (e)
+   ``flash_attention`` and ``decode_attention`` at its head layout
+   against their plain versions and timed beside SDPA and their bounds;
+   (f) Mixtral-8x7B at smoke width (a 64-token window, no shared
+   experts), a 160-token prompt and 16 tokens, kernel route against plain
+   route, pinned; ``launch.train --arch qwen2-moe-a2.7b --smoke --steps
+   10`` on the card: finite losses, a positive, finite MoE aux loss, no
+   launch; (g) full-width xLSTM-125M (125,707,824 parameters) through the
+   serving CLI, B=2, a 1,024-token prompt, 32 tokens, with no kernel
+   launch; the whole model on the card against the CPU, as phase 8's cut;
+   ``impl="chunked"`` (the chunkwise-parallel mLSTM) against the scan on
+   the card at B=2, S=512, prefill and 4 teacher-forced decode steps,
+   within phase 7's rule.
+17. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phases 9 and 14, over the ranks), then the result line.
 
@@ -205,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import contextlib
 import time
 from unittest import mock
 
@@ -231,6 +267,7 @@ from repro_torch.kernels import rglru_scan as rs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_agg_mesh, run_ranks  # noqa: E402
 from repro_torch.models.lenet import lenet_init, lenet_loss  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 (non-tensor-core)
@@ -268,6 +305,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 32
 SERVE_PARAMS = 8_532_381_696
 CPU_BATCH, CPU_PROMPT = 1, 2560   # one pattern cycle, card against the CPU
 CPU_STEPS = 4                     # teacher-forced decode steps, card vs CPU
+TEACHER_STEPS = 8                 # decode steps held to the plain route
 # The kernel route against the plain route (and the card against the CPU)
 # is held, as phase 4 holds LeNet, to SENSITIVITY_FACTOR times the plain
 # route's own spread when the embedding moves by 1e-7 relative
@@ -283,6 +321,9 @@ SEG_INSTANTIATIONS = 6       # segment_sum.cu, segment_aggregate.cu,
                              # cloud_aggregate.cu, weighted_mean.cu: load
                              # widths of 4, 2, 1 elements x fp32/bf16
 HOST_CALLS = 1000            # calls timed on the host clock, no sync
+PROFILE_RETRIES = 3          # phase 2: reruns of a session that recorded
+                             # no kernel (each printed; never a pass)
+PROBE_SESSIONS = 200         # --probe-profiler's sessions
 # Phase 8: full-width ChatGLM3-6B serving (B, prompt and tokens as phase
 # 7), and the serving CLI's default model at the CLI's default sizes.
 GLM_ARCH = "chatglm3-6b"
@@ -298,6 +339,7 @@ SHARD_RANKS = 2
 SHARD_ROWS = 60
 SPREAD_SEEDS = (1, 2, 3)
 CPU_EDGE = 0                 # phase 4's card-against-CPU cohort: this edge
+CPU_UES = 10                 # ... its first UEs (of 20)
 LENET_PARAMS = 44_426
 FLEET_ROWS = 16_384
 FLEET_SEED = 11
@@ -332,7 +374,7 @@ SERVICE_SEGMENTS = "iid_campus:1.0:40,iid_campus:4.0:60,iid_campus:1.0:inf"
 SERVICE_STALENESS = 4
 SERVICE_EVENTS = 40
 SERVICE_CKPT_EVERY = 10
-SERVICE_RESUME_AT = 20
+SERVICE_RESUME_AT = 30
 SERVICE_STREAM_CHUNK = 32
 SERVICE_STREAM_EVENTS = 10
 SERVICE_FAULT_SEED = 0        # edge_outage: an edge down at the t=40 s
@@ -355,13 +397,36 @@ MESH_TIMEOUT_S = 600
 MESH_CKPT_AT = 5                     # the service's checkpoint, of 10 events
 MESH_STREAM_CHUNK = 32
 MESH_STREAM_SEED = 5
-MESH_SPREAD_SEEDS = SPREAD_SEEDS[:2]  # two moves a spread
+ASYNC_SPREAD_SEEDS = SPREAD_SEEDS[:2]  # phase 14: two moves for async (its
+MESH_SPREAD_SEEDS = SPREAD_SEEDS[:1]   # train-loss ratio was 1.20), one for
+                                       # the other references
 FL_MESH = (2, 2)
 # Phase 15: the transformer's training half.  (a) the training CLI at its
 # defaults (full-width StableLM-1.6B, B=8, S=128, AdamW at 3e-4); (b) a
 # full-width 2-layer cut card against CPU; (d) ``--mode hfl`` at smoke
 # width on phase 14's 2 x 2 mesh of ranks.
 TRAIN_ARGV = ["--arch", CLI_ARCH, "--steps", "10", "--device", "cuda"]
+# Phase 16: the MoE FFN and the xLSTM kinds.  Qwen1.5-MoE-A2.7B
+# (hf:Qwen/Qwen1.5-MoE-A2.7B) at full width: 24 layers of 60 routed
+# experts (top-4) and 4 shared ones, MHA of 16 heads of 128; 57.3 GB of
+# fp32 parameters.
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PARAMS = 14_315_636_736
+MOE_LAYERS = 24
+MOE_CPU_LAYERS = 3                # the card-against-CPU cut, full width
+MOE_MEMORY_LIMIT = 80e9           # peak bytes allowed while serving it
+ATTN_MOE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 16, 128, True, 0)
+DECODE_MOE = (SERVE_BATCH, 2 * SERVE_PROMPT, 16, 16, 128, SERVE_PROMPT, 0,
+              "prefix")
+MIXTRAL_ARCH = "mixtral-8x7b"     # smoke width: 186.8 GB in fp32 at full
+MIXTRAL_SMOKE_PARAMS = 3_738_880
+MIXTRAL_PROMPT, MIXTRAL_GEN = 160, 16    # past its 64-token window
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--smoke", "--steps", "10",
+                  "--device", "cuda", "--log-every", "5"]
+XLSTM_ARCH = "xlstm-125m"         # arXiv:2405.04517, full width
+XLSTM_PARAMS = 125_707_824
+XLSTM_PROMPT = 1024
+XLSTM_CHUNKED_PROMPT = 512        # chunked against scan: 4 chunks of 128
 TRAIN_LR = 3e-4
 TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 1, 64
 HFL_ARGV = ["--mode", "hfl", "--edges", "2", "--ues", "2", "--smoke",
@@ -618,19 +683,89 @@ def aggregation_calls(cases, s_cases) -> dict:
             for case, (x, w, g, m) in s_cases.items()]}
 
 
+def warm_profiler(flush: torch.Tensor) -> None:
+    """One throwaway ``torch.profiler`` session, so that no checked
+    session is the process's first (CUPTI's start-up)."""
+    kernels_per_call(lambda: flush.zero_(), flush)
+
+
 def check_one_launch(calls_by_name: dict) -> None:
-    """The calls of each wrapper (name -> calls), one ``torch.profiler``
-    session a wrapper: only that wrapper's kernel runs, at most once a
-    call (the profiler may drop a record)."""
+    """The calls of each wrapper (name -> calls), run together in one
+    ``torch.profiler`` session a wrapper: the wrapper's own count
+    (``launch_counts``) rises by exactly one a call and no other kernel's
+    count moves, and the profiler records nothing but the wrapper's
+    ``{name}_kernel``, at most once a call.  A session that records no
+    kernel at all is run again, at most PROFILE_RETRIES times, each retry
+    printed; a session that never records one fails."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    warm_profiler(flush)
     for name, calls in calls_by_name.items():
-        launched = kernels_per_call(lambda: [fn() for fn in calls], flush)
+        for attempt in range(1 + PROFILE_RETRIES):
+            # the counts of the profiled run alone (kernels_per_call runs
+            # the calls once before it)
+            launched = kernels_per_call(
+                lambda: (reset_counts(), [fn() for fn in calls]), flush)
+            counted = counts()
+            check(counted == expect(**{name: len(calls)}),
+                  f"{name}: {len(calls)} calls counted {counted}")
+            if launched:
+                break
+            print(f"  {name}: the profiler recorded no kernel of "
+                  f"{len(calls)} calls (session {attempt + 1} of at most "
+                  f"{1 + PROFILE_RETRIES}); running the calls again")
         count = sum(c for c, _ in launched.values())
         check(bool(launched) and all(f"{name}_kernel" in k for k in launched)
               and count <= len(calls), f"{name}: {len(calls)} calls "
               f"launched {launched}")
         print(f"  {name}: {len(calls)} calls, one at each case's shape, "
-              f"launched {count} kernels, all {name}_kernel")
+              f"counted {len(calls)} launches; the profiler recorded "
+              f"{count} kernels, all {name}_kernel")
+
+
+def probe_profiler(sessions: int = PROBE_SESSIONS) -> int:
+    """``python3 chip_smoke.py --probe-profiler``: how many of phase 2's 9
+    ``segment_aggregate`` calls (ctypes launches) a ``torch.profiler``
+    session records when they are the process's first launches of the
+    kernel, and how often a session records none of them once they have
+    run, with and without a PyTorch kernel launched in the same session.  A
+    session that records the PyTorch kernel and not the ctypes ones would
+    point at CUPTI dropping the ctypes launches; one that records neither,
+    at the session."""
+    build.build(("segment_aggregate",))
+    cases = kernel_cases("cuda")
+    calls = aggregation_calls(cases, {})["segment_aggregate"]
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    marker = torch.zeros(1 << 20, device="cuda")
+    # the calls' first launches in the process, profiled with no call
+    # before them (phase 2's sessions run the calls once first)
+    cold = device_profile(lambda: [fn() for fn in calls])[1]
+    print(f"probe: CUDA_MODULE_LOADING="
+          f"{os.environ.get('CUDA_MODULE_LOADING', '(unset)')}; the first "
+          f"{len(calls)} calls of the process recorded "
+          f"{sum(e.count for e in cold)} kernels: "
+          f"{[(e.key.split('(')[0][-50:], e.count) for e in cold]}")
+    rows = []
+    for i in range(sessions):
+        with_marker = i % 2 == 1
+        launched = kernels_per_call(
+            lambda: [fn() for fn in calls] + (
+                [marker.add_(1.0)] if with_marker else []), flush)
+        ours = sum(c for k, (c, _) in launched.items()
+                   if "segment_aggregate_kernel" in k)
+        other = sum(c for k, (c, _) in launched.items()
+                    if "segment_aggregate_kernel" not in k)
+        rows.append((i, with_marker, ours, other))
+    empty = [r for r in rows if r[2] == 0]
+    print(f"probe: {sessions} sessions of {len(calls)} segment_aggregate "
+          f"calls (every other one with a PyTorch add); first session "
+          f"recorded {rows[0][2]} of ours; sessions recording none of ours: "
+          f"{len(empty)} ({[r[0] for r in empty][:20]}), of which the "
+          f"PyTorch kernel was recorded in "
+          f"{sum(1 for r in empty if r[1] and r[3] > 0)}; sessions "
+          f"recording fewer than {len(calls)}: "
+          f"{sum(1 for r in rows if 0 < r[2] < len(calls))}")
+    print(json.dumps({"probe": [list(r) for r in rows]}))
+    return 0
 
 
 def time_kernels(x, w, g, m,
@@ -1026,14 +1161,16 @@ def attn_inputs(case, dtype=torch.float32):
                  for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd)))
 
 
-def check_attention_against_plain() -> float:
-    """``flash_attention`` on each case against its plain version (fp32
-    within ATTN_ATOL; two bf16 cases within 2 bf16 ulps of the largest
-    value) and bit for bit between two launches; returns the largest fp32
-    absolute error."""
+def check_attention_against_plain(cases=None) -> float:
+    """``flash_attention`` on each case (ATTN_CASES and two bf16 cases by
+    default) against its plain version (fp32 within ATTN_ATOL; bf16 within
+    2 bf16 ulps of the largest value) and bit for bit between two
+    launches; returns the largest fp32 absolute error."""
     worst = 0.0
-    for case in ATTN_CASES + [(2, 128, 128, 8, 4, 64, True, 0, "bf16"),
-                              (1, 300, 300, 16, 1, 256, True, 128, "bf16")]:
+    if cases is None:
+        cases = ATTN_CASES + [(2, 128, 128, 8, 4, 64, True, 0, "bf16"),
+                              (1, 300, 300, 16, 1, 256, True, 128, "bf16")]
+    for case in cases:
         causal, window = case[6], case[7]
         bf16 = case[-1] == "bf16"
         q, k, v = attn_inputs(case, torch.bfloat16 if bf16 else torch.float32)
@@ -1275,14 +1412,16 @@ def decode_inputs(case, dtype=torch.float32):
     return q, k, v, sp, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
-def check_decode_against_plain() -> float:
-    """``decode_attention`` on each case against its plain version (fp32
-    within KERNEL_RTOL of the output's scale; one bf16 case within 2 bf16
-    ulps), bit for bit between two launches, and the empty cache equal to
-    the mean of V; returns the largest fp32 absolute error."""
+def check_decode_against_plain(cases=None) -> float:
+    """``decode_attention`` on each case (DECODE_CASES and one bf16 case by
+    default) against its plain version (fp32 within KERNEL_RTOL of the
+    output's scale; bf16 within 2 bf16 ulps), bit for bit between two
+    launches, and the empty cache equal to the mean of V; returns the
+    largest fp32 absolute error."""
     worst = 0.0
-    for case, bf16 in [(c, False) for c in DECODE_CASES] + [
-            (DECODE_CASES[0], True)]:
+    if cases is None:
+        cases = [(c, False) for c in DECODE_CASES] + [(DECODE_CASES[0], True)]
+    for case, bf16 in cases:
         window = case[6]
         args = decode_inputs(case, torch.bfloat16 if bf16 else torch.float32)
         out = da.decode_attention(*args, window=window)
@@ -1490,10 +1629,13 @@ def run_summary(res) -> dict:
 
 def device_profile(fn):
     """Run ``fn`` once under ``torch.profiler``; returns the wall time in
-    us and the device kernels that took time (``key_averages`` entries)."""
+    us and the device kernels that took time (``key_averages`` entries).
+    The device's activity alone is recorded: with the host's too, a warm
+    LeNet round on an H100 took 17.2 s to summarise, against 4.5 s, for
+    the same kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
         fn()
@@ -1530,10 +1672,10 @@ def profile_round(sim, test, top: int = 8) -> None:
 
 
 def sub_problem(sch, ue_data):
-    """Edge CPU_EDGE's UEs alone at phase 3's (a*, b*): the cohort of phase
-    4's card-against-CPU round (its weights are the UEs' sample counts,
-    their D_n)."""
-    idx = np.flatnonzero(sch.assoc[:, CPU_EDGE])
+    """Edge CPU_EDGE's first CPU_UES UEs alone at phase 3's (a*, b*): the
+    cohort of phase 4's card-against-CPU round (its weights are the UEs'
+    sample counts, their D_n)."""
+    idx = np.flatnonzero(sch.assoc[:, CPU_EDGE])[:CPU_UES]
     sub = dataclasses.replace(
         sch, assoc=sch.assoc[idx][:, [CPU_EDGE]],
         edge_round_time=sch.edge_round_time[[CPU_EDGE]], problem=None)
@@ -1560,7 +1702,8 @@ def phase_card_vs_cpu(sch, ue_data, test):
 
     sub, sub_data = sub_problem(sch, ue_data)
     check(np.array_equal([len(d["labels"]) for d in sub_data],
-                         sch.problem.samples[sch.assoc[:, CPU_EDGE] > 0]),
+                         sch.problem.samples[np.flatnonzero(
+                             sch.assoc[:, CPU_EDGE])[:CPU_UES]]),
           "the sub-problem's weights are not its UEs' D_n")
     torch.set_num_threads(os.cpu_count() or 1)
     gpu, cpu = final(sub, sub_data, "cuda"), final(sub, sub_data, "cpu")
@@ -1808,13 +1951,128 @@ def phase_serve_cli(argv, batch: int, prefill: dict,
           "serve CLI: tokens")
 
 
+class PinnedRoutes:
+    """Pins the MoE routes of the runs compared to one run's.  Top-k of the
+    router's probabilities is a discrete choice: a rounding-sized move of a
+    router input can swap the k-th and (k+1)-th expert, and a swap moves
+    the capacity bins of every later pick of that expert.  So ``record``
+    keeps every ``moe._route`` call's experts (``top_e``) in call order,
+    and ``replay`` makes another run take them, in the same order, with
+    the gates recomputed from that run's own probabilities; it counts the
+    token decisions whose expert set the run would have taken otherwise
+    and the smallest router margin (k-th minus (k+1)-th probability)
+    among them."""
+
+    def __init__(self):
+        self.routes = []
+
+    def record(self):
+        orig = moe._route
+
+        def rec(cfg, router_w, xt):
+            out = orig(cfg, router_w, xt)
+            self.routes.append(out[1])
+            return out
+
+        return mock.patch.object(moe, "_route", rec)
+
+    @contextlib.contextmanager
+    def replay(self, label: str, calls: int):
+        """The first ``calls`` recorded routes, each used once."""
+        orig = moe._route
+        routes = iter(self.routes[:calls])
+        stats = dict(used=0, decisions=0, flips=0, margin=float("inf"))
+
+        def rep(cfg, router_w, xt):
+            _, own, aux, z = orig(cfg, router_w, xt)
+            pinned = next(routes).to(xt.device)
+            _, probs = moe.router_probs(router_w, xt)
+            top_p = torch.gather(probs, 1, pinned)
+            top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+            differ = (torch.sort(own, -1).values
+                      != torch.sort(pinned, -1).values).any(-1)
+            k = pinned.shape[1]
+            srt = torch.sort(probs, -1, descending=True).values
+            margins = (srt[:, k - 1] - srt[:, k])[differ]
+            stats["used"] += 1
+            stats["decisions"] += differ.numel()
+            stats["flips"] += int(differ.sum())
+            if margins.numel():
+                stats["margin"] = min(stats["margin"], float(margins.min()))
+            return top_p.to(xt.dtype), pinned, aux, z
+
+        with mock.patch.object(moe, "_route", rep):
+            yield
+        check(stats["used"] == calls, f"{label}: {stats['used']} routes "
+              f"replayed, {calls} recorded for it")
+        print(f"  {label}: routes pinned over {calls} MoE layer calls; "
+              f"unpinned, {stats['flips']} of {stats['decisions']} token "
+              f"decisions would differ (smallest router margin among them "
+              f"{stats['margin']:.3e})")
+
+
+def moe_profile(fn, label: str) -> None:
+    """``device_profile`` of ``fn`` with the MoE's stages (``_route``,
+    ``_dispatch``, ``_expert_ffn``, ``_combine``) and its shared experts
+    annotated (``torch.profiler.record_function``): each stage's device
+    time and share of the device-busy time, then the serving profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    stages = ("_route", "_dispatch", "_expert_ffn", "_combine")
+
+    def annotated(name, f):
+        def wrapped(*a, **k):
+            with record_function(f"moe.{name}"):
+                return f(*a, **k)
+        return wrapped
+
+    patches = [mock.patch.object(moe, n, annotated(n, getattr(moe, n)))
+               for n in stages]
+    for p in patches:
+        p.start()
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for p in patches:
+            p.stop()
+    events = prof.key_averages()
+    # the annotations also show on the device's timeline, as spans that
+    # cover their kernels and the gaps between them: kept out of the
+    # kernels; a stage's device time is its kernels' (the host-side span's)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("moe.")]
+    busy = sum(e.self_device_time_total for e in kernels)
+    spans = {e.key: e.device_time_total for e in events
+             if e.key.startswith("moe.") and e.device_type == DeviceType.CPU}
+    moe_us = sum(spans.values())
+    print_serving_profile(kernels, wall_us, label)
+    if busy:
+        print(f"  MoE stages in the {label}: " + "; ".join(
+            f"{k} {v / 1e3:.3f} ms = {v / busy:.1%}"
+            for k, v in sorted(spans.items()))
+            + f"; routed MoE in all {moe_us / 1e3:.3f} ms = "
+            f"{moe_us / busy:.1%} of device time")
+
+
 def phase_serving(arch: str, n_params: int, prefill: dict,
-                  attn_layers: int) -> dict:
-    """Full-width ``arch`` from seed 0, B=SERVE_BATCH, SERVE_PROMPT prompt
-    tokens, SERVE_GEN greedy tokens: timed, launch-counted (``prefill``
-    launches in prefill, ``attn_layers`` ``decode_attention`` per decode
-    step), profiled, and the kernel route against the plain route."""
-    cfg = get_config(arch)
+                  attn_layers: int, smoke: bool = False,
+                  prompt: int = SERVE_PROMPT, gen: int = SERVE_GEN) -> dict:
+    """``arch`` (full width, or its smoke config) from seed 0,
+    B=SERVE_BATCH, ``prompt`` prompt tokens, ``gen`` greedy tokens: timed,
+    launch-counted (``prefill`` launches in prefill, ``attn_layers``
+    ``decode_attention`` per decode step), profiled, and the kernel route
+    against the plain route on the prefill and TEACHER_STEPS
+    teacher-forced decode steps (an MoE's routes pinned to the kernel
+    route's, ``PinnedRoutes``).  Each state is dropped when it is done
+    with: full-width Qwen1.5-MoE holds 57.3 GB of parameters and 6.4 GB a
+    KV stack."""
+    cfg = get_config(arch, smoke=smoke)
     model = Model(cfg)
     check(model.num_params() == n_params,
           f"{model.num_params()} parameters != {n_params}")
@@ -1825,42 +2083,51 @@ def phase_serving(arch: str, n_params: int, prefill: dict,
           f"({', '.join(sorted(set(cfg.layer_kinds)))}), d_model "
           f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
           f"head(s) of {cfg.resolved_head_dim}, window "
-          f"{cfg.local_window or cfg.sliding_window}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}; {model.num_params()} fp32 parameters from seed "
-          f"0 on the card in {time.perf_counter() - t0:.2f} s")
+          f"{cfg.local_window or cfg.sliding_window}, d_ff {cfg.d_ff}"
+          + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok} "
+             f"(+{cfg.num_shared_experts} shared) of {cfg.moe_d_ff or cfg.d_ff}"
+             if cfg.is_moe else "")
+          + f", vocab {cfg.vocab_size}; {model.num_params()} fp32 parameters "
+          f"from seed 0 on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated()} B allocated")
     prompts = torch.as_tensor(TokenStream(cfg.vocab_size, seed=0).batch(
-        SERVE_BATCH, SERVE_PROMPT)["tokens"], device="cuda")
+        SERVE_BATCH, prompt)["tokens"], device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    pin = PinnedRoutes() if cfg.is_moe else None
+    recording = pin.record() if pin else contextlib.nullcontext()
 
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logits, state = model.prefill(params, {"tokens": prompts})
+    with recording:
+        logits, state = model.prefill(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = counts()
-    print(f"prefill B={SERVE_BATCH} S={SERVE_PROMPT}: {prefill_s:.3f} s; "
+    print(f"prefill B={SERVE_BATCH} S={prompt}: {prefill_s:.3f} s; "
           f"launches {launches}")
     check(launches == expect(**prefill),
           f"prefill launch counts {launches} != {prefill}, none else")
     tokens = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]]
     decode_logits = []
     st = state
+    del state
     reset_counts()
     t0 = time.perf_counter()
-    for _ in range(SERVE_GEN - 1):
-        lg, st = model.decode_step(params, st, tokens[-1])
-        decode_logits.append(lg)
-        tokens.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None])
+    with recording:
+        for _ in range(gen - 1):
+            lg, st = model.decode_step(params, st, tokens[-1])
+            decode_logits.append(lg)
+            tokens.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None])
     torch.cuda.synchronize()
-    decode_s = (time.perf_counter() - t0) / (SERVE_GEN - 1)
+    decode_s = (time.perf_counter() - t0) / (gen - 1)
     decoded = counts()
-    check(decoded == expect(decode_attention=attn_layers * (SERVE_GEN - 1)),
+    check(decoded == expect(decode_attention=attn_layers * (gen - 1)),
           f"decode launch counts {decoded} != {attn_layers} x "
-          f"{SERVE_GEN - 1} decode_attention, none else")
+          f"{gen - 1} decode_attention, none else")
     tokens = torch.cat(tokens, 1)
     peak = torch.cuda.max_memory_allocated()
-    print(f"decode: {SERVE_GEN - 1} greedy steps, {decode_s * 1e3:.3f} "
+    print(f"decode: {gen - 1} greedy steps, {decode_s * 1e3:.3f} "
           f"ms/token (B={SERVE_BATCH}); launches {decoded}; peak memory "
           f"{peak} B; tokens[0, :16] {tokens[0, :16].tolist()}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -1869,24 +2136,37 @@ def phase_serving(arch: str, n_params: int, prefill: dict,
         bool(torch.isfinite(t).all()) for t in decode_logits),
         "finite logits")
 
-    wall, kernels = device_profile(
-        lambda: model.prefill(params, {"tokens": prompts}))
-    print_serving_profile(kernels, wall, "prefill")
-    wall, kernels = device_profile(
-        lambda: model.decode_step(params, st, tokens[:, -1:]))
-    print_serving_profile(kernels, wall, "decode step")
+    def profiled(fn, label):
+        if cfg.is_moe:
+            return moe_profile(fn, label)
+        wall, kernels = device_profile(fn)
+        print_serving_profile(kernels, wall, label)
 
+    profiled(lambda: model.decode_step(params, st, tokens[:, -1:]),
+             "decode step")
+    del st
+    profiled(lambda: model.prefill(params, {"tokens": prompts}), "prefill")
+
+    steps = min(TEACHER_STEPS, gen - 1)
+    moe_layers = cfg.num_layers if cfg.is_moe else 0
+    calls = moe_layers * (1 + steps)
+    decode_logits = decode_logits[:steps]
     naive = Model(cfg, impl="naive")
-    n_logits, n_state = naive.prefill(params, {"tokens": prompts})
-    n_decode = teacher_forced(naive, params, n_state, tokens[:, :-1])
-    del n_state
-    moved = perturbed(params)
-    m_logits, m_state = naive.prefill(moved, {"tokens": prompts})
-    m_decode = teacher_forced(naive, moved, m_state, tokens[:, :-1])
-    del moved, m_state
+    plain = {}
+    for label, p in (("plain route", params), ("its spread run",
+                                               perturbed(params))):
+        pinning = pin.replay(label, calls) if pin else \
+            contextlib.nullcontext()
+        with pinning:
+            lg, n_state = naive.prefill(p, {"tokens": prompts})
+            plain[label] = (lg, teacher_forced(naive, p, n_state,
+                                               tokens[:, :steps]))
+        del n_state, p
+    (n_logits, n_decode), (m_logits, m_decode) = plain.values()
     hold_to_spread("kernel vs plain route", "prefill logits", logits,
                    n_logits, n_logits, m_logits)
-    hold_to_spread("kernel vs plain route", "teacher-forced decode logits",
+    hold_to_spread("kernel vs plain route",
+                   f"{steps} teacher-forced decode steps' logits",
                    decode_logits, n_decode, n_decode, m_decode)
     return dict(prefill_s=prefill_s, decode_s=decode_s, peak=peak,
                 launches={k: launches[k] + decoded[k] for k in launches})
@@ -1914,36 +2194,47 @@ def phase_serving_card_vs_cpu(arch: str, layers: int, prompt: int,
     """``layers`` layers of ``arch`` at full width, B=CPU_BATCH: the card's
     kernel route against the CPU (whose wrappers take the plain versions)
     on the prefill logits and CPU_STEPS teacher-forced decode steps, held
-    to SENSITIVITY_FACTOR times the card's plain-route spread."""
+    to SENSITIVITY_FACTOR times the card's plain-route spread; an MoE's
+    routes pinned to the card's kernel run (``PinnedRoutes``)."""
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     card = Model(cfg)
     params = card.init(0)
     tokens = TokenStream(cfg.vocab_size, seed=0).batch(
         CPU_BATCH, prompt + CPU_STEPS)["tokens"]
     batch, follow = {"tokens": tokens[:, :prompt]}, tokens[:, prompt:]
+    pin = PinnedRoutes() if cfg.is_moe else None
+    calls = layers * (1 + CPU_STEPS) if pin else 0
+
+    def pinned(label):
+        return pin.replay(label, calls) if pin else contextlib.nullcontext()
+
     reset_counts()
-    logits, state = card.prefill(params, batch)
-    torch.cuda.synchronize()
-    check(counts() == expect(**prefill),
-          f"{layers}-layer prefill launch counts {counts()}")
-    reset_counts()
-    decode = teacher_forced(card, params, state, follow)
+    with pin.record() if pin else contextlib.nullcontext():
+        logits, state = card.prefill(params, batch)
+        torch.cuda.synchronize()
+        check(counts() == expect(**prefill),
+              f"{layers}-layer prefill launch counts {counts()}")
+        reset_counts()
+        decode = teacher_forced(card, params, state, follow)
     torch.cuda.synchronize()
     check(counts() == expect(decode_attention=attn_layers * CPU_STEPS),
           f"{layers}-layer decode launch counts {counts()}")
     naive = Model(cfg, impl="naive")
-    plain, st = naive.prefill(params, batch)
-    plain_dec = teacher_forced(naive, params, st, follow)
+    with pinned("card, plain route"):
+        plain, st = naive.prefill(params, batch)
+        plain_dec = teacher_forced(naive, params, st, follow)
     moved_params = perturbed(params)
-    moved, st = naive.prefill(moved_params, batch)
-    moved_dec = teacher_forced(naive, moved_params, st, follow)
+    with pinned("card, plain route's spread run"):
+        moved, st = naive.prefill(moved_params, batch)
+        moved_dec = teacher_forced(naive, moved_params, st, follow)
     cpu_params = to_cpu(params)
     del params, moved_params, state, st
     torch.set_num_threads(os.cpu_count() or 1)
     cpu = Model(cfg, device="cpu")
     t0 = time.perf_counter()
-    cpu_logits, cpu_state = cpu.prefill(cpu_params, batch)
-    cpu_dec = teacher_forced(cpu, cpu_params, cpu_state, follow)
+    with pinned("CPU"):
+        cpu_logits, cpu_state = cpu.prefill(cpu_params, batch)
+        cpu_dec = teacher_forced(cpu, cpu_params, cpu_state, follow)
     print(f"  card vs CPU, {layers} layers, B={CPU_BATCH} S={prompt} + "
           f"{CPU_STEPS} decode steps: CPU {time.perf_counter() - t0:.1f} s")
     hold_to_spread("card vs CPU", "prefill logits", logits.cpu(),
@@ -2021,13 +2312,29 @@ def phase_sharded(sch, ue_data, test) -> dict:
 
 
 def _phase_sharded(sch, ue_data, test) -> dict:
+    torch.cuda.empty_cache()        # the ranks share the card with us
+    state = {}
+
+    def spawn():
+        t0 = time.perf_counter()
+        try:
+            state["ranks"] = run_ranks(sharded_rank, SHARD_RANKS, sch,
+                                       ue_data, test, device="cuda",
+                                       timeout_s=RANK_TIMEOUT_S)
+        except BaseException as e:   # re-raised on the main thread
+            state["error"] = e
+        state["wall"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=spawn, daemon=True)
+    thread.start()
+    # Beside the ranks: the unsharded run and its spread over the same
+    # ROUNDS rounds when its init moves by SENSITIVITY_NOISE relative (the
+    # largest over SPREAD_SEEDS draws of the move: one draw's train-loss
+    # spread came out 10x under its test-loss one): the sharded run
+    # differs from it only in the order of the cloud sums.
+    t0 = time.perf_counter()
     unsharded = run_summary(make_sim(sch, ue_data, "cuda").run(
         test, rounds=ROUNDS))
-    # The spread of that run itself, over the same ROUNDS rounds, when its
-    # init moves by SENSITIVITY_NOISE relative (the largest over
-    # SPREAD_SEEDS draws of the move: one draw's train-loss spread came out
-    # 10x under its test-loss one): the sharded run differs from it only
-    # in the order of the cloud sums.
     spread = dict.fromkeys(("final", "test_loss", "train_loss"), 0.0)
     for seed in SPREAD_SEEDS:
         moved = run_summary(make_sim(sch, ue_data, "cuda",
@@ -2039,13 +2346,16 @@ def _phase_sharded(sch, ue_data, test) -> dict:
         for key in ("test_loss", "train_loss"):
             spread[key] = max(spread[key], float(
                 np.abs(moved[key] - unsharded[key]).max()))
-    torch.cuda.empty_cache()        # the ranks share the card with us
-    t0 = time.perf_counter()
-    ranks = run_ranks(sharded_rank, SHARD_RANKS, sch, ue_data, test,
-                      device="cuda", timeout_s=RANK_TIMEOUT_S)
+    ref_wall = time.perf_counter() - t0
+    thread.join(timeout=RANK_TIMEOUT_S + 60)
+    check(not thread.is_alive(), "the ranks did not end")
+    if "error" in state:
+        raise state["error"]
+    ranks = state["ranks"]
     print(f"{SHARD_RANKS} ranks (gloo, both on {ranks[0]['device']}, so "
           f"they share one card) on a {SHARD_RANKS} x 1 mesh: "
-          f"{time.perf_counter() - t0:.1f} s from spawn to results")
+          f"{state['wall']:.1f} s from spawn to results; the unsharded "
+          f"reference and its spread runs beside them {ref_wall:.1f} s")
     per_rank = expect(segment_aggregate=sch.b * ROUNDS,
                       weighted_mean=ROUNDS)
     for r in ranks:
@@ -3228,7 +3538,7 @@ def mesh_references(sch, ue_data, test, refs) -> dict:
     base = async_run()
     out["async"] = (base, _spread(
         base, [async_run(noise=SENSITIVITY_NOISE, noise_seed=seed)
-               for seed in MESH_SPREAD_SEEDS],
+               for seed in ASYNC_SPREAD_SEEDS],
         ("final", "test_loss", "train_loss")))
     for name, kw in (
             ("faulty", dict(delay_model=scenario(FAULT_SCENARIO).model,
@@ -3257,13 +3567,13 @@ def mesh_references(sch, ue_data, test, refs) -> dict:
     out["spmd"] = (base, max(
         max(_max_err(a, b) for a, b in zip(
             spmd_loop(sch, ue_data, SENSITIVITY_NOISE, seed), base))
-        for seed in SPREAD_SEEDS))
+        for seed in MESH_SPREAD_SEEDS))
     base = hfl_loop()
     out["hfl"] = (base, max(
         max(_max_err(a, b) for moved, ref in zip(
             hfl_loop(SENSITIVITY_NOISE, seed), base)
             for a, b in zip(moved, ref))
-        for seed in SPREAD_SEEDS))
+        for seed in MESH_SPREAD_SEEDS))
     out["wall"] = time.perf_counter() - t0
     return out
 
@@ -3744,6 +4054,128 @@ def check_hfl(ranks, ref) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 16
+# ---------------------------------------------------------------------------
+
+
+def phase_moe_serving() -> dict:
+    """Parts (a)-(e): full-width Qwen1.5-MoE-A2.7B through the serving CLI
+    and step by step (profiled, kernel route against plain route with the
+    routes pinned), a 3-layer cut against the CPU, then ``flash_attention``
+    and ``decode_attention`` at its head layout against their plain
+    versions and timed.  Returns the model run's launches and (e)'s
+    errors and times."""
+    torch.cuda.empty_cache()
+    print(f"(a) {torch.cuda.memory_allocated()} B allocated at the start")
+    t0 = time.perf_counter()
+    phase_serve_cli(["--arch", MOE_ARCH, "--batch", str(SERVE_BATCH),
+                     "--prompt-len", str(SERVE_PROMPT), "--gen",
+                     str(SERVE_GEN), "--seed", "0"], SERVE_BATCH,
+                    dict(flash_attention=MOE_LAYERS), MOE_LAYERS)
+    print(f"(a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    served = phase_serving(MOE_ARCH, MOE_PARAMS,
+                           dict(flash_attention=MOE_LAYERS), MOE_LAYERS)
+    check(served["peak"] < MOE_MEMORY_LIMIT,
+          f"peak memory {served['peak']} B >= {MOE_MEMORY_LIMIT:g}")
+    print(f"(b, c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_serving_card_vs_cpu(MOE_ARCH, MOE_CPU_LAYERS, GLM_CPU_PROMPT,
+                              dict(flash_attention=MOE_CPU_LAYERS),
+                              MOE_CPU_LAYERS)
+    print(f"(d) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs = dict(flash_attention=check_attention_against_plain([ATTN_MOE]),
+                decode_attention=check_decode_against_plain(
+                    [(DECODE_MOE, False)]))
+    timing = dict(flash_attention=time_attention(ATTN_MOE),
+                  decode_attention=time_decode(DECODE_MOE))
+    print(f"(e) {time.perf_counter() - t0:.1f} s")
+    return dict(launches=served["launches"], errs=errs, timing=timing)
+
+
+def phase_moe_smoke() -> dict:
+    """Part (f): Mixtral-8x7B at smoke width (a 64-token window, no shared
+    experts) served past its window, kernel route against plain route with
+    the routes pinned; then ``launch.train`` on Qwen1.5-MoE's smoke config
+    on the card: finite losses, and the MoE aux loss of the trained params
+    positive and finite."""
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    served = phase_serving(MIXTRAL_ARCH, MIXTRAL_SMOKE_PARAMS,
+                           dict(flash_attention=2), 2, smoke=True,
+                           prompt=MIXTRAL_PROMPT, gen=MIXTRAL_GEN)
+    reset_counts()
+    res = train.main(MOE_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = counts()
+    losses = res["losses"]
+    model = Model(get_config(MOE_ARCH, smoke=True), impl="xla_flash")
+    args = train.parse_args(MOE_TRAIN_ARGV)
+    with torch.no_grad():
+        _, mets = model.loss(res["params"], train.batch_for(
+            model, TokenStream(model.cfg.vocab_size, seed=0), args.batch,
+            args.seq, 0))
+    aux = float(mets["aux"])
+    print(f"train CLI {MOE_TRAIN_ARGV}: losses "
+          f"{[round(x, 4) for x in losses]}; the trained params' ce "
+          f"{float(mets['ce']):.4f}, aux {aux:.6f}; launches {launches}")
+    check(len(losses) == args.steps and bool(np.isfinite(losses).all()),
+          "finite MoE training losses")
+    check(np.isfinite(aux) and aux > 0, f"MoE aux loss {aux}")
+    check(launches == expect(), f"MoE training launched kernels: {launches}")
+    print(f"(f) {time.perf_counter() - t0:.1f} s")
+    return served["launches"]
+
+
+def phase_xlstm() -> None:
+    """Part (g): full-width xLSTM-125M (mLSTM and sLSTM, no kernel) through
+    the serving CLI with every kernel count 0; the whole model on the card
+    against the CPU; then ``impl="chunked"`` (the chunkwise-parallel
+    mLSTM) against the scan on the card's prefill and decode, each within
+    SENSITIVITY_FACTOR times the scan's spread under a 1e-7 embedding
+    move."""
+    t0 = time.perf_counter()
+    phase_serve_cli(["--arch", XLSTM_ARCH, "--batch", str(SERVE_BATCH),
+                     "--prompt-len", str(XLSTM_PROMPT), "--gen",
+                     str(SERVE_GEN), "--seed", "0"], SERVE_BATCH, {}, 0)
+    cfg = get_config(XLSTM_ARCH)
+    check(Model(cfg).num_params() == XLSTM_PARAMS,
+          f"{XLSTM_ARCH}: parameters != {XLSTM_PARAMS}")
+    phase_serving_card_vs_cpu(XLSTM_ARCH, cfg.num_layers, GLM_CPU_PROMPT,
+                              {}, 0)
+    scan, chunked = Model(cfg), Model(cfg, impl="chunked")
+    params = scan.init(0)
+    tokens = TokenStream(cfg.vocab_size, seed=0).batch(
+        SERVE_BATCH, XLSTM_CHUNKED_PROMPT + CPU_STEPS)["tokens"]
+    batch, follow = {"tokens": tokens[:, :XLSTM_CHUNKED_PROMPT]}, \
+        tokens[:, XLSTM_CHUNKED_PROMPT:]
+    runs = {}
+    reset_counts()
+    for label, model, p in (("scan", scan, params),
+                            ("chunked", chunked, params),
+                            ("scan, moved", scan, perturbed(params))):
+        t1 = time.perf_counter()
+        logits, state = model.prefill(p, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t1
+        runs[label] = (logits, teacher_forced(model, p, state, follow))
+        print(f"  xLSTM {label} prefill B={SERVE_BATCH} "
+              f"S={XLSTM_CHUNKED_PROMPT}: {t_prefill:.3f} s")
+    check(counts() == expect(), f"xLSTM launched kernels: {counts()}")
+    (s_lg, s_dec), (c_lg, c_dec), (m_lg, m_dec) = runs.values()
+    hold_to_spread("chunked vs scan", "prefill logits", c_lg, s_lg, s_lg,
+                   m_lg)
+    hold_to_spread("chunked vs scan", f"{CPU_STEPS} teacher-forced decode "
+                   "logits from the chunked prefill's state", c_dec, s_dec,
+                   s_dec, m_dec)
+    print(f"(g) {time.perf_counter() - t0:.1f} s")
+
+
 def time_aggregation() -> int:
     """``--time-aggregation``: K1, K2, K3 and K4 timed at the paths'
     shapes and phase 6, nothing else.  Only the wrappers' signatures are
@@ -3825,14 +4257,19 @@ def main(argv=None) -> int:
         return time_aggregation()
     if argv == ["--time-rounds"]:
         return time_rounds()
+    if argv == ["--probe-profiler"]:
+        return probe_profiler()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     print("== phase 1: device")
+    t0 = time.perf_counter()
     phase_device()
+    print(f"phase 1: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 2: kernels vs plain versions on the card")
+    t0 = time.perf_counter()
     cases = kernel_cases("cuda")
     errs = check_kernels_against_plain(cases)
     timing = time_kernels(*cases["main_n100_f44426"])
@@ -3876,21 +4313,31 @@ def main(argv=None) -> int:
     for case in ("slab_n60_f44426", "fleet_n16384_f44426", "bf16_fleet"):
         time_mean_slice_rule(*m_cases[case])
     del m_cases
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 3: main path at full width")
+    t0 = time.perf_counter()
     sch, plan_s, ue_data, test = main_path_inputs()
     launches, main_clock = phase_main_path(sch, plan_s, ue_data, test)
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 4: the card against the CPU, one cloud round")
+    t0 = time.perf_counter()
     card_sync, spread = phase_card_vs_cpu(sch, ue_data, test)
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 5: async Algorithm 1 at full width")
+    t0 = time.perf_counter()
     async_run = phase_async(sch, ue_data, test, card_sync, spread)
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 6: streaming edge aggregation, 1,048,576 rows")
+    t0 = time.perf_counter()
     launches["segment_sum"] = phase_streaming()
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 7: serving full-width RecurrentGemma-9B")
+    t0 = time.perf_counter()
     rg_prefill = dict(flash_attention=12, rglru_scan=26)
     phase_serve_cli(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
                      "--prompt-len", str(SERVE_PROMPT), "--gen",
@@ -3899,9 +4346,11 @@ def main(argv=None) -> int:
     served = phase_serving(SERVE_ARCH, SERVE_PARAMS, rg_prefill, 12)
     phase_serving_card_vs_cpu(SERVE_ARCH, 3, CPU_PROMPT,
                               dict(flash_attention=1, rglru_scan=2), 1)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 8: serving the scanned dense stack: full-width "
           "ChatGLM3-6B, then the serving CLI's default")
+    t0 = time.perf_counter()
     glm = phase_serving(GLM_ARCH, GLM_PARAMS, dict(flash_attention=28), 28)
     phase_serving_card_vs_cpu(GLM_ARCH, 3, GLM_CPU_PROMPT,
                               dict(flash_attention=3), 3)
@@ -3911,11 +4360,14 @@ def main(argv=None) -> int:
                     CLI_LAYERS)
     for name in ("flash_attention", "rglru_scan", "decode_attention"):
         launches[name] = served["launches"][name] + glm["launches"][name]
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 9: data-sharded sync Algorithm 1, 2 ranks on the card")
+    t0 = time.perf_counter()
     sharded = phase_sharded(sch, ue_data, test)
     for name in ("segment_aggregate", "weighted_mean"):
         launches[name] += sharded[name]
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 10: the stochastic clock at full width")
     t0 = time.perf_counter()
@@ -3953,6 +4405,17 @@ def main(argv=None) -> int:
     phase_train_card_vs_cpu()
     phase_refuse_autograd()
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    print("== phase 16: the MoE FFN (full-width Qwen1.5-MoE-A2.7B, Mixtral "
+          "at smoke width) and the xLSTM kinds (full-width xLSTM-125M)")
+    t0 = time.perf_counter()
+    moe_run = phase_moe_serving()
+    mixtral = phase_moe_smoke()
+    phase_xlstm()
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] += moe_run["launches"][name] + mixtral[name]
+        errs[name] = max(errs[name], moe_run["errs"][name])
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s on {card_line()}")
     print("kernels: " + ", ".join(KERNELS))

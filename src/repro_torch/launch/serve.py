@@ -1,6 +1,7 @@
 """Batched serving driver: prefill + greedy decode with a KV cache.
 Ported from the JAX package's ``repro/launch/serve.py`` (plain-token
-models; the encoder-decoder and vision branches are not ported yet).
+models, dense, MoE and xLSTM; the encoder-decoder and vision branches are
+not ported yet).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve   # StableLM-1.6B, card
@@ -8,6 +9,10 @@ models; the encoder-decoder and vision branches are not ported yet).
       --batch 2 --prompt-len 4096 --gen 32          # full width, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
       --smoke --device cpu --batch 2 --prompt-len 160 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --batch 2 --prompt-len 4096 --gen 32          # 57.3 GB, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+      --smoke --device cpu --batch 2 --prompt-len 64 --gen 8
 
 Parameters are random, from ``--seed``; prompts come from
 ``TokenStream``.  Prints the prefill time and the decode time per token.
@@ -70,8 +75,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    # the MoE, xLSTM, encoder-decoder and vision models raise
-    # NotImplementedError here
+    # the encoder-decoder and vision models raise NotImplementedError here
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     B, S = args.batch, args.prompt_len

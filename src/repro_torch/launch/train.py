@@ -1,6 +1,6 @@
 """End-to-end training launcher, ported from the JAX package's
-``repro/launch/train.py`` (plain-token models; the encoder-decoder and
-vision branches are not ported yet).
+``repro/launch/train.py`` (plain-token models, dense, MoE and xLSTM; the
+encoder-decoder and vision branches are not ported yet).
 
 Two modes:
 
@@ -18,6 +18,8 @@ kernels have no backward).  Examples:
       --smoke --steps 50 --batch 8 --seq 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --steps 10
       # full-width StableLM-1.6B on the card (26.3 GB of params and AdamW)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
+      --smoke --steps 10 --device cpu      # the loss adds the MoE aux loss
   PYTHONPATH=src python -m repro_torch.launch.train --mode hfl --edges 2 \\
       --ues 2 --smoke --rounds 2 --device cpu
 """
@@ -62,8 +64,7 @@ def run_dp(args) -> dict:
     loss of every step and the seconds of every step (each ended by
     reading its loss)."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    # the MoE, xLSTM, encoder-decoder and vision models raise
-    # NotImplementedError here
+    # the encoder-decoder and vision models raise NotImplementedError here
     model = build_model(cfg, impl="xla_flash", device=args.device)
     stream = TokenStream(cfg.vocab_size, seed=0)
     params = model.init(args.seed)

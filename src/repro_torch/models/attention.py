@@ -16,6 +16,7 @@ cache):
                     decode's own formula;
   * ``naive``     — dense scores from positions, and the reference decode's
                     own formula; the oracle.
+``chunked`` (the model's two-level-scan route) attends as ``xla_flash``.
 Supports causal, sliding-window and bidirectional masking, GQA head
 groups, partial RoPE and qk-norm.  Cross attention (encoder-decoder) is
 not ported yet (ROADMAP Queue 1 item 14).
@@ -132,13 +133,13 @@ def _project_qkv(cfg, p, x, positions, inv_freqs):
 def _attend(q, k, v, positions, causal, window, impl):
     if impl == "kernel":
         return fa.flash_attention(q, k, v, causal=causal, window=window)
-    if impl == "xla_flash":
+    if impl in ("xla_flash", "chunked"):
         return xla_flash_attention(q, k, v, positions, positions, causal,
                                    window)
     if impl == "naive":
         return naive_attention(q, k, v, positions, positions, causal, window)
-    raise ValueError(f"impl must be 'kernel', 'xla_flash' or 'naive', got "
-                     f"{impl!r}")
+    raise ValueError(f"impl must be 'kernel', 'xla_flash', 'naive' or "
+                     f"'chunked', got {impl!r}")
 
 
 def self_attention(cfg, p, x, *, causal=True, window=0, impl="kernel"):
@@ -191,7 +192,7 @@ def decode_self_attention(cfg, p, x, cache, *, window=0, impl="kernel",
     if impl == "kernel":
         o = da.decode_attention(q, new_k, new_v, new_slot_pos, pos,
                                 window=window)
-    elif impl in ("naive", "xla_flash"):
+    elif impl in ("naive", "xla_flash", "chunked"):
         H = cfg.num_heads
         K = cfg.num_kv_heads
         g = H // K
@@ -205,8 +206,8 @@ def decode_self_attention(cfg, p, x, cache, *, window=0, impl="kernel",
         pr = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgqs,bskh->bqkgh", pr, new_v).reshape(B, 1, H, hd)
     else:
-        raise ValueError(f"impl must be 'kernel', 'xla_flash' or 'naive', "
-                         f"got {impl!r}")
+        raise ValueError(f"impl must be 'kernel', 'xla_flash', 'naive' or "
+                         f"'chunked', got {impl!r}")
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     new_cache = {"k": new_k, "v": new_v, "slot_pos": new_slot_pos,
                  "pos": pos + 1}

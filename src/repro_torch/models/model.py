@@ -14,7 +14,10 @@ Ported from the JAX package's ``repro/models/model.py``: ``param_specs``,
   blocked online-softmax attention and the plain scan in PyTorch,
   differentiable by autograd and ``torch.func``;
 * ``"naive"`` runs dense attention, the reference decode's own attention
-  formula and the plain scan: the oracle.
+  formula and the plain scan: the oracle;
+* ``"chunked"`` (the reference's two-level scans) runs attention as
+  ``"xla_flash"`` does, the RG-LRU through ``rglru_scan_chunked`` and the
+  mLSTM in its chunkwise-parallel form (``apply_mlstm_chunked``).
 Homogeneous dense stacks keep the reference's ``"scanned"`` layout
 (stacked parameters and decode state; ``models/transformer.py``).
 Parameters, activations and the decode state are fp32 (the reference's
@@ -23,8 +26,9 @@ global-attention layers for one more prompt length (its default
 ``decode_margin``).  ``remat=True`` (the reference's default) recomputes
 each layer's activations in the backward (``torch.utils.checkpoint``).
 
-Only plain-token models are ported: the MoE, xLSTM, encoder-decoder and
-vision configs raise ``NotImplementedError`` (ROADMAP Queue 1 item 14).
+Only plain-token models are ported, dense, MoE (``models/moe.py``) and
+xLSTM alike: the encoder-decoder and vision configs raise
+``NotImplementedError`` (ROADMAP Queue 1 item 14).
 
 Batch layouts (see ``input_specs``):
   train   {'tokens', 'targets': (B, S) int}
@@ -47,7 +51,7 @@ from repro_torch.models.layers import (
     spec_leaves, unembed_matrix,
 )
 
-IMPLS = ("kernel", "xla_flash", "naive")
+IMPLS = ("kernel", "xla_flash", "naive", "chunked")
 
 
 def chunked_cross_entropy(hidden, w_unembed, targets, mask=None, chunk=512):
@@ -141,8 +145,9 @@ class Model:
         return x, torch.as_tensor(batch["targets"], device=self.device), aux
 
     def loss(self, params, batch):
-        """Mean next-token cross entropy (+ the MoE aux loss, 0 here).
-        Returns (loss, {"ce": loss, "aux": aux}), 0-d float32 tensors."""
+        """Mean next-token cross entropy plus the MoE aux loss (the layers'
+        load-balance and z losses summed; 0 without experts).  Returns
+        (ce + aux, {"ce": ce, "aux": aux}), 0-d float32 tensors."""
         h, targets, aux = self._hidden_train(params, batch)
         w = unembed_matrix(self.cfg, params)
         loss_sum, count = chunked_cross_entropy(h, w, targets,

@@ -1,21 +1,22 @@
 """Composable transformer stack, ported from the JAX package's
-``repro/models/transformer.py`` for the layer kinds ``attn``,
-``local_attn`` and ``rglru``: the training forward (``apply_stack``,
-optionally rematerialised layer by layer), prefill and decode, in both of
-its layouts:
+``repro/models/transformer.py`` for the layer kinds ``attn`` (with an MLP,
+or with the MoE FFN when the config has experts), ``local_attn``,
+``rglru``, ``mlstm`` and ``slstm``: the training forward (``apply_stack``,
+optionally rematerialised layer by layer, summing the MoE layers' aux
+losses), prefill and decode, in both of its layouts:
 
-* ``"layers"``  — heterogeneous stacks (RecurrentGemma): a list of
+* ``"layers"``  — heterogeneous stacks (RecurrentGemma, xLSTM): a list of
   per-layer parameter dicts and states, one python loop;
-* ``"scanned"`` — homogeneous dense ``attn`` stacks (StableLM, ChatGLM3,
-  Qwen3, Mistral-Large): every parameter and state leaf stacked along a
-  leading layer axis, as the reference stacks them for its ``lax.scan``;
-  the port loops over the layers with views ``[l]`` of the stacked
-  tensors.  The decode state is ``{"k", "v": (L, B, W, K, hd),
-  "slot_pos": (L, W), "pos": (L,)}``.
+* ``"scanned"`` — homogeneous ``attn`` stacks (StableLM, ChatGLM3, Qwen3,
+  Mistral-Large and the MoE models Qwen1.5-MoE and Mixtral): every
+  parameter and state leaf stacked along a leading layer axis, as the
+  reference stacks them for its ``lax.scan``; the port loops over the
+  layers with views ``[l]`` of the stacked tensors.  The decode state is
+  ``{"k", "v": (L, B, W, K, hd), "slot_pos": (L, W), "pos": (L,)}``.
 
-Not ported yet; each raises ``NotImplementedError`` (ROADMAP Queue 1 item
-14): MoE layers, the xLSTM kinds ``mlstm`` and ``slstm`` and the
-encoder-decoder stack.
+The xLSTM blocks have ``ln1`` and a cell, no ``ln2`` and no MLP.  Not
+ported yet: the encoder-decoder stack raises ``NotImplementedError``
+(ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
                                        norm_specs, stack_specs)
+from repro_torch.models.moe import apply_moe, moe_specs
 
 _ITEM = "ROADMAP Queue 1 item 14"
 
@@ -38,13 +40,12 @@ def _not_ported(what: str):
                                f"({_ITEM})")
 
 
-def _check_kind(cfg, kind: str):
-    if kind in ("mlstm", "slstm"):
-        raise _not_ported(f"the xLSTM layer kind {kind!r}")
-    if kind not in ("attn", "local_attn", "rglru"):
+_KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
+
+
+def _check_kind(kind: str):
+    if kind not in _KINDS:
         raise ValueError(kind)
-    if cfg.is_moe and kind == "attn":
-        raise _not_ported("the MoE layer")
 
 
 def _check_stack(cfg):
@@ -56,7 +57,7 @@ def check_config(cfg):
     """Raise ``NotImplementedError`` if ``cfg`` has a part not ported yet."""
     _check_stack(cfg)
     for kind in set(cfg.layer_kinds):
-        _check_kind(cfg, kind)
+        _check_kind(kind)
 
 
 def _layer(tree, i: int):
@@ -84,15 +85,40 @@ def _window(cfg, kind: str) -> int:
 # --------------------------------------------------------------------------
 
 def block_specs(cfg, kind: str):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     s: Dict[str, Any] = {"ln1": norm_specs(cfg)}
+    if kind in ("mlstm", "slstm"):
+        s["cell"] = (rec.mlstm_specs if kind == "mlstm"
+                     else rec.slstm_specs)(cfg)
+        return s
     if kind in ("attn", "local_attn"):
         s["attn"] = attn.attention_specs(cfg)
     else:
         s["rnn"] = rec.rglru_specs(cfg)
     s["ln2"] = norm_specs(cfg)
-    s["mlp"] = mlp_specs(cfg)
+    if cfg.is_moe and kind == "attn":
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
     return s
+
+
+def _ffn(cfg, p, x):
+    """The block's second half, on the normed input: the MoE FFN (its aux
+    loss) or the MLP (a zero aux)."""
+    if "moe" in p:
+        return apply_moe(cfg, p["moe"], x)
+    return apply_mlp(cfg, p["mlp"], x), torch.zeros((), device=x.device)
+
+
+def _xlstm(cfg, kind, p, x, impl):
+    """An xLSTM block's cell on its normed input: (h, final state); the
+    mLSTM in its chunkwise-parallel form under ``impl="chunked"``."""
+    if kind == "slstm":
+        fn = rec.apply_slstm
+    else:
+        fn = rec.apply_mlstm_chunked if impl == "chunked" else rec.apply_mlstm
+    return fn(cfg, p["cell"], apply_norm(cfg, p["ln1"], x))
 
 
 # --------------------------------------------------------------------------
@@ -100,8 +126,12 @@ def block_specs(cfg, kind: str):
 # --------------------------------------------------------------------------
 
 def apply_block(cfg, kind, p, x, *, impl="kernel"):
-    """Full-sequence block.  Returns x."""
-    _check_kind(cfg, kind)
+    """Full-sequence block.  Returns (x, aux): aux the MoE layer's
+    load-balance and z loss, else a zero."""
+    _check_kind(kind)
+    if kind in ("mlstm", "slstm"):
+        return x + _xlstm(cfg, kind, p, x, impl)[0], torch.zeros(
+            (), device=x.device)
     if kind in ("attn", "local_attn"):
         x = x + attn.self_attention(cfg, p["attn"],
                                     apply_norm(cfg, p["ln1"], x), causal=True,
@@ -109,7 +139,8 @@ def apply_block(cfg, kind, p, x, *, impl="kernel"):
     else:
         x = x + rec.apply_rglru(cfg, p["rnn"], apply_norm(cfg, p["ln1"], x),
                                 impl=impl)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    h, aux = _ffn(cfg, p, apply_norm(cfg, p["ln2"], x))
+    return x + h, aux
 
 
 # --------------------------------------------------------------------------
@@ -117,17 +148,25 @@ def apply_block(cfg, kind, p, x, *, impl="kernel"):
 # --------------------------------------------------------------------------
 
 def init_layer_state(cfg, kind, batch: int, max_len: int, device=None):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     if kind in ("attn", "local_attn"):
         window = _window(cfg, kind)
         W = min(window, max_len) if window > 0 else max_len
         return attn.init_kv_cache(cfg, batch, W, device=device)
+    if kind == "mlstm":
+        return rec.mlstm_init_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return rec.slstm_init_state(cfg, batch, device=device)
     return rec.rglru_init_state(cfg, batch, device=device)
 
 
 def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel"):
-    """Full-sequence block that also returns the decode state (prefill)."""
-    _check_kind(cfg, kind)
+    """Full-sequence block that also returns the decode state (prefill).
+    The MoE layer's aux loss is dropped, as the reference drops it."""
+    _check_kind(kind)
+    if kind in ("mlstm", "slstm"):
+        h, st = _xlstm(cfg, kind, p, x, impl)
+        return x + h, st
     if kind in ("attn", "local_attn"):
         h, st = attn.self_attention_prefill(
             cfg, p["attn"], apply_norm(cfg, p["ln1"], x), causal=True,
@@ -136,12 +175,13 @@ def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel"):
         h, st = rec.apply_rglru(cfg, p["rnn"], apply_norm(cfg, p["ln1"], x),
                                 impl=impl, return_state=True)
     x = x + h
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x)), st
+    return x + _ffn(cfg, p, apply_norm(cfg, p["ln2"], x))[0], st
 
 
 def apply_stack(cfg, p, x, *, impl="kernel", remat=False):
     """Full-sequence stack (the training forward).  Returns (x, aux); aux
-    is the MoE load-balancing loss, 0 here (MoE layers raise).
+    is the sum of the MoE layers' load-balance and z losses (0 without
+    experts).
 
     Both layouts loop over the layers in python, the ``"scanned"`` one over
     its stacked leaves unbound along the layer axis (``_unbind``: under
@@ -158,10 +198,13 @@ def apply_stack(cfg, p, x, *, impl="kernel", remat=False):
                                                   cfg.num_layers)]
     else:
         layers = list(zip(cfg.layer_kinds, p["layers"]))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in layers:
         fn = functools.partial(apply_block, cfg, kind, impl=impl)
-        x = checkpoint(fn, lp, x, use_reentrant=False) if remat else fn(lp, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = (checkpoint(fn, lp, x, use_reentrant=False) if remat
+                else fn(lp, x))
+        aux = aux + a
+    return x, aux
 
 
 def prefill_stack(cfg, p, x, *, cache_len, impl="kernel"):
@@ -186,7 +229,12 @@ def decode_block(cfg, kind, p, x, state, *, impl="kernel", in_place=False):
     """One-token block.  Returns (x, new_state); ``in_place`` writes an
     attention layer's token into ``state`` itself (see
     ``attention.decode_self_attention``)."""
-    _check_kind(cfg, kind)
+    _check_kind(kind)
+    if kind in ("mlstm", "slstm"):
+        step = (rec.mlstm_decode_step if kind == "mlstm"
+                else rec.slstm_decode_step)
+        h, state = step(cfg, p["cell"], apply_norm(cfg, p["ln1"], x), state)
+        return x + h, state
     if kind in ("attn", "local_attn"):
         h, state = attn.decode_self_attention(
             cfg, p["attn"], apply_norm(cfg, p["ln1"], x), state,
@@ -195,7 +243,7 @@ def decode_block(cfg, kind, p, x, state, *, impl="kernel", in_place=False):
         h, state = rec.rglru_decode_step(cfg, p["rnn"],
                                          apply_norm(cfg, p["ln1"], x), state)
     x = x + h
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x)), state
+    return x + _ffn(cfg, p, apply_norm(cfg, p["ln2"], x))[0], state
 
 
 # --------------------------------------------------------------------------

@@ -314,6 +314,10 @@ ATTN_CASES = {
     "window_7": (1, 200, 200, 8, 2, 64, True, 7, torch.float32, None),
     "bf16_hd256": (1, 300, 300, 16, 1, 256, True, 128, torch.bfloat16,
                    None),
+    # Qwen1.5-MoE-A2.7B's serving prefill (MHA, 16 over 16) and Mixtral
+    # smoke's windowed prefill past its 64-token window
+    "qwen2_moe": (2, 4096, 4096, 16, 16, 128, True, 0, torch.float32, None),
+    "mixtral_smoke": (2, 160, 160, 8, 2, 32, True, 64, torch.float32, None),
 }
 
 
@@ -388,8 +392,10 @@ def test_decode_attention_layout_fits_every_config(arch):
 
 
 # B, W, K: the decode shapes of RecurrentGemma-9B (a full 2,048-slot ring),
-# ChatGLM3-6B (8,192 slots at S = 4,096) and StableLM-1.6B in the CLI.
+# ChatGLM3-6B and Qwen1.5-MoE-A2.7B (8,192 slots at S = 4,096) and
+# StableLM-1.6B in the CLI.
 SERVING_DECODES = {"recurrentgemma": (2, 2048, 1), "chatglm3": (2, 8192, 2),
+                   "qwen2_moe": (2, 8192, 16),
                    "stablelm_cli": (4, 128, 32)}
 
 
@@ -406,10 +412,12 @@ def test_decode_split_rule_fills_the_card(name):
     assert blocks <= da.NUM_SMS
 
 
-# B, Sq, H, K, hd: the prefill shapes of RecurrentGemma-9B and ChatGLM3-6B
-# in serving, and of StableLM-1.6B in the serving CLI's default run.
+# B, Sq, H, K, hd: the prefill shapes of RecurrentGemma-9B, ChatGLM3-6B and
+# Qwen1.5-MoE-A2.7B in serving, and of StableLM-1.6B in the serving CLI's
+# default run.
 SERVING_PREFILLS = {"recurrentgemma": (2, 4096, 16, 1, 256),
                     "chatglm3": (2, 4096, 32, 2, 128),
+                    "qwen2_moe": (2, 4096, 16, 16, 128),
                     "stablelm_cli": (4, 64, 32, 32, 64)}
 
 
@@ -493,6 +501,10 @@ DECODE_CASES = {
     "ragged_last_tile_only": (2, 100, 8, 2, 64, 500, 0, "tail"),
     "pairs_600": (300, 64, 4, 2, 32, 40, 0, "prefix"),
     "mha_three_splits": (1, 96, 2, 2, 32, 90, 0, "prefix"),
+    # Qwen1.5-MoE-A2.7B's first decode step (MHA, 16 over 16, 4,097 of
+    # 8,192 slots) and Mixtral smoke's wrapped 64-slot ring
+    "qwen2_moe": (2, 8192, 16, 16, 128, 4096, 0, "prefix"),
+    "mixtral_smoke": (2, 64, 8, 2, 32, 170, 64, "ring"),
 }
 
 

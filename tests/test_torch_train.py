@@ -52,9 +52,10 @@ REL = 1e-5
 SPREAD_NOISE = 1e-7
 SPREAD_FACTOR = 10.0
 ARCHS = ["stablelm-1.6b", "chatglm3-6b", "recurrentgemma-9b"]
-UNPORTED = {"mixtral-8x7b": "MoE layer", "qwen2-moe-a2.7b": "MoE layer",
-            "xlstm-125m": "xLSTM", "internvl2-26b": "frontend",
-            "whisper-base": "frontend"}
+UNPORTED = {"internvl2-26b": "frontend", "whisper-base": "frontend"}
+# the MoE and xLSTM smoke models: ce and aux within 1e-6 relative
+AUX_ARCHS = ["qwen2-moe-a2.7b", "mixtral-8x7b", "xlstm-125m"]
+CE_REL = 1e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -145,6 +146,51 @@ def test_loss_and_grads_match_reference(arch, remat):
     assert float(t_aux["aux"]) == j_aux == 0.0
     assert float(t_aux["ce"]) == float(t_loss)
     _hold_leaves(t_g, j_g, f"{arch} grads")
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", AUX_ARCHS)
+def test_moe_and_xlstm_loss_and_grads_match_reference(arch, remat):
+    """``Model.loss`` adds the MoE layers' aux loss (load balance and z
+    loss, summed over the layers): ``ce`` and ``aux`` within 1e-6
+    relative, every gradient leaf within 1e-5 of its largest reference
+    magnitude, through remat and without."""
+    params, batch, j_loss, j_aux, j_g = _reference(arch)
+    tm = t_model.Model(t_base.get_config(arch, True), impl="xla_flash",
+                       remat=remat, device="cpu")
+    (t_loss, t_aux), t_g = t_steps.value_and_grad(
+        tm.loss, from_jax_params(params, device="cpu"), batch)
+    j_ce = j_loss - j_aux
+    assert abs(float(t_aux["ce"]) - j_ce) <= CE_REL * j_ce
+    if arch == "xlstm-125m":
+        assert float(t_aux["aux"]) == j_aux == 0.0
+    else:
+        assert j_aux > 0
+        assert abs(float(t_aux["aux"]) - j_aux) <= CE_REL * j_aux
+    assert float(t_loss) == float(t_aux["ce"] + t_aux["aux"])
+    _hold_leaves(t_g, j_g, f"{arch} grads")
+
+
+def test_moe_aux_through_remat_equals_without():
+    """The MoE stack's aux loss and its gradient come through
+    ``torch.utils.checkpoint`` unchanged (a block returns (x, aux))."""
+    cfg = t_base.get_config("qwen2-moe-a2.7b", True)
+    m = t_model.Model(cfg, impl="xla_flash", device="cpu")
+    params = m.init(0)
+    batch = TokenStream(cfg.vocab_size, seed=2).batch(2, 24)
+
+    def aux_only(p, b):
+        _, mets = m.loss(p, b)
+        return mets["aux"], mets
+
+    (a0, _), g0 = t_steps.value_and_grad(aux_only, params, batch)
+    m.remat = False
+    (a1, _), g1 = t_steps.value_and_grad(aux_only, params, batch)
+    assert float(a0) == float(a1) > 0
+    router = [g["moe"]["router"] for g in (g0["scanned"], g1["scanned"])]
+    assert float(router[0].abs().max()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g0),
+                                                 tree_leaves(g1)))
 
 
 def test_kernel_route_on_the_cpu_is_the_plain_route():

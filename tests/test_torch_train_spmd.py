@@ -11,6 +11,9 @@ the JAX package.
   within 1e-5 of that leaf's largest reference magnitude.  The port's
   ranks build the model with ``remat=False``: the local steps take
   ``torch.func``'s vmap of grad, which runs no ``torch.utils.checkpoint``.
+  The same round of a smoke Mixtral (the MoE FFN: routing, capacity
+  bins and the experts' products under ``torch.func.vmap(grad)``) under
+  the same rule.
 * ``make_local_sgd_train_step`` on a 2-rank 'data' mesh
   (``make_agg_mesh(1, 2)``), 4 SGD steps with an edge sync after step 2
   and a cloud sync after step 4 (a = b = 2), each rank its own batches,
@@ -52,6 +55,7 @@ from repro_torch.optim import sgd  # noqa: E402
 SPAWN_TIMEOUT_S = 150
 REL = 1e-5
 ARCH = "stablelm-1.6b"
+MOE_ARCH = "mixtral-8x7b"
 E, U = 2, 2
 A, B, LR = 2, 2, 0.1            # the cloud round: a local GD steps x b
 BATCH, SEQ = 2, 16
@@ -98,8 +102,8 @@ def _timeout():
     return datetime.timedelta(seconds=SPAWN_TIMEOUT_S)
 
 
-def _model():
-    return Model(t_base.get_config(ARCH, smoke=True), impl="xla_flash",
+def _model(arch=ARCH):
+    return Model(t_base.get_config(arch, smoke=True), impl="xla_flash",
                  remat=False, device="cpu")
 
 
@@ -110,20 +114,20 @@ def _tree_of(model, leaves):
     return tree_unflatten(paths, [torch.tensor(x) for x in leaves])
 
 
-def _ue_batches():
-    stream = TokenStream(t_base.get_config(ARCH, smoke=True).vocab_size,
+def _ue_batches(arch=ARCH):
+    stream = TokenStream(t_base.get_config(arch, smoke=True).vocab_size,
                          seed=0)
     per_ue = [stream.batch(BATCH, SEQ, step=i) for i in range(E * U)]
     return {k: np.stack([b[k] for b in per_ue]) for k in per_ue[0]}
 
 
-def _hfl_rank(init_leaves):
+def _hfl_rank(init_leaves, arch=ARCH):
     torch.set_num_threads(1)
     mesh = make_fl_mesh(E, U, device="cpu", timeout=_timeout())
-    model = _model()
+    model = _model(arch)
     stacked = spmd.stack_for_mesh(_tree_of(model, init_leaves), E, U)
     fn = spmd.make_hfl_cloud_round(model.loss, mesh, a=A, b=B, lr=LR)
-    out = fn(mesh.local(stacked), mesh.local(_ue_batches()),
+    out = fn(mesh.local(stacked), mesh.local(_ue_batches(arch)),
              mesh.local(np.arange(1.0, E * U + 1.0, dtype=np.float32)))
     return [t[0].clone() for t in tree_leaves(out)]
 
@@ -159,13 +163,14 @@ def _local_sgd_rank(init_leaves):
     return {"losses": losses, "params": tree_leaves(params)}
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def _reference_round(tmp_path_factory, arch):
+    """The reference's cloud round of ``arch``'s smoke model in a
+    subprocess: (init leaves, round's output leaves), numpy."""
     path = tmp_path_factory.mktemp("ref") / "hfl.npz"
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     r = subprocess.run([sys.executable, "-c", REFERENCE, src, str(path),
-                        *map(str, (E, U, A, B, LR, BATCH, SEQ)), ARCH],
+                        *map(str, (E, U, A, B, LR, BATCH, SEQ)), arch],
                        capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
     z = np.load(path)
@@ -174,9 +179,14 @@ def reference(tmp_path_factory):
             [z[f"out{i}"] for i in range(n)])
 
 
-def test_hfl_cloud_round_matches_reference(reference):
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return _reference_round(tmp_path_factory, ARCH)
+
+
+def _hold_round(reference, arch):
     init, want = reference
-    ranks = run_ranks(_hfl_rank, E * U, init, device="cpu",
+    ranks = run_ranks(_hfl_rank, E * U, init, arch, device="cpu",
                       timeout_s=SPAWN_TIMEOUT_S)
     for r, leaves in enumerate(ranks):
         assert len(leaves) == len(want)
@@ -186,6 +196,15 @@ def test_hfl_cloud_round_matches_reference(reference):
     # the cloud event leaves every rank the same model
     for leaves in ranks[1:]:
         assert all(torch.equal(a, b) for a, b in zip(leaves, ranks[0]))
+
+
+def test_hfl_cloud_round_matches_reference(reference):
+    _hold_round(reference, ARCH)
+
+
+def test_hfl_cloud_round_of_an_moe_matches_reference(tmp_path_factory):
+    """The MoE FFN under the round's ``torch.func.vmap(grad)``."""
+    _hold_round(_reference_round(tmp_path_factory, MOE_ARCH), MOE_ARCH)
 
 
 def _reference_local_sgd(init):
