@@ -146,15 +146,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
 13. The always-on service on the card, with cuDNN's deterministic
    algorithms: ``HFLService`` over a full-width LeNet async simulator on
    phase 3's problem (max_staleness 4, the segments of the JAX package's
-   ``tools/crash_smoke.py``), 40 events checkpointed every 10 (the burst
-   drives shedding); a service resumed from the event-30 checkpoint ends
+   ``tools/crash_smoke.py``), 40 events checkpointed every 5 (the burst
+   drives shedding); a service resumed from the event-35 checkpoint ends
    with the same trace, its model within 1e-6; a ``merge_stream_chunk=32``
    run (``segment_sum`` once a chunk, the accumulator on the card) whose
    rows are the direct reads' within 1e-5 and whose trace is the first
-   run's, each of its chunks then held to ``segment_sum``'s plain version
+   run's (4 events), each of its chunks then held to ``segment_sum``'s plain version
    as phase 2 holds it, on the chunk's own rows and on distinct random
-   rows of its shape under its weights; an ``edge_outage`` run with ``fail``, ``repair`` and
-   ``failover`` records, and a wave with a dead cohort whose rows are
+   rows of its shape under its weights; an ``edge_outage`` run of 4
+   events with ``fail``, ``repair`` and ``failover`` records, and a wave with a dead cohort whose rows are
    exactly 0; and, in processes of their own beside those runs,
    ``python -m repro_torch.launch.service --device cuda`` (24 UEs, 4
    edges, 160 events) killed with SIGKILL after two checkpoints and
@@ -171,9 +171,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    distinct random rows), (b) phase 11's deadline+failover and sampled
    sync runs (clock and masks = phase 11's, ``weighted_mean`` once a
    rank a round with a survivor, no pad row sampled), (c) phase 13's
-   streamed service for 10 events (trace = phase 13's record for record,
+   streamed service for 4 events (trace = phase 13's record for record,
    ``segment_sum`` once a merge row's chunk; rank 0 checkpoints at event
-   5, fresh mesh services resume it to the uninterrupted run's trace and
+   2, fresh mesh services resume it to the uninterrupted run's trace and
    model within 1e-6); then on a 2 x 2 ('edge', 'ue') mesh (e) one
    ``make_hfl_cloud_round`` of full-width LeNet at (a*, b*), one of phase
    3's UEs a rank, with no launch.  Each model is held to its
@@ -223,7 +223,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``impl="chunked"`` (the chunkwise-parallel mLSTM) against the scan on
    the card at B=2, S=512, prefill and 4 teacher-forced decode steps,
    within phase 7's rule.
-17. Kernel records as JSON (``launches``: each path's count, read around
+17. The encoder-decoder stack, the vision frontend and bf16.  (a)
+   ``repro_torch.launch.serve`` at full-width Whisper-base (6 encoder and
+   6 decoder layers, MHA 8 over 8 heads of 64; 97,182,720 fp32
+   parameters from seed 0), B=8, 1,500 frames (its 30 s window), 32
+   greedy tokens: 6 ``flash_attention`` launches (the bidirectional
+   encoder) and 6 ``decode_attention`` a token, the prefill's first among
+   them (6 + 6 x 31), none else; a profiled decode step; (b) 2 encoder and
+   2 decoder layers of it at B=1, 1,500 frames: kernel route against
+   plain route and card against CPU, prefill and TEACHER_STEPS
+   teacher-forced decode steps, within SENSITIVITY_FACTOR times the plain
+   route's spread under a 1e-7 move of the embedding and the frames; (c)
+   full-width InternVL2-26B in bf16 (``Model(param_dtype=, act_dtype=
+   torch.bfloat16)``, 19,861,260,288 parameters, 39.7 GB) through
+   ``serve.generate``: B=2, 256 patch embeddings and 3,840 tokens, 32
+   greedy tokens, peak memory under 80 GB; then a prefill (48
+   ``flash_attention`` launches) and TEACHER_STEPS teacher-forced decode
+   steps (48 ``decode_attention`` each) against the plain route, within
+   BF16_FACTOR times the bf16 yardstick (the plain route with bf16
+   activations against the same with fp32 activations on the same bf16
+   weights); a profiled decode step; (d) 2 layers of it at full width in
+   bf16, B=1, 256 patches and 64 tokens, card against CPU by (c)'s rule;
+   (e) ``launch.train --arch whisper-base --steps 10`` at full width
+   (``xla_flash``, no launch): finite, falling losses; then
+   ``flash_attention`` and ``decode_attention`` at Whisper's shapes
+   (fp32) and InternVL2's (bf16, their own lines and tolerances) against
+   their plain versions and timed beside SDPA and their bounds (bf16: at
+   the bf16 tensor-core rate and at the fp32 rate).
+18. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phases 9 and 14, over the ranks), then the result line.
 
@@ -274,6 +301,7 @@ from repro_torch.models.model import Model  # noqa: E402
 # rate, for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core rate, the same sheet
 
 MAIN = dict(num_edges=5, num_ues=100, epsilon=0.25, seed=0)
 ROUNDS = 2
@@ -367,22 +395,26 @@ JOINT_TRIALS = 16
 JOINT_MAX_MOVES = 5
 # Phase 13: the always-on service on phase 3's problem and model, with the
 # segments of the JAX package's tools/crash_smoke.py (a 4x burst from 40 to
-# 100 s simulated); 40 events reach the burst's shedding.  The SIGKILL run
+# 100 s simulated); 40 events reach the burst's shedding (its first shed
+# comes after event 36).  The resume runs the last 5 events, the streamed
+# run the first 4 (a merge row each) and the outage run 4 (the fewest with
+# its fail, failover and repair records).  The SIGKILL run
 # is tools/crash_smoke.py's: the CLI's logreg federation of 24 UEs on 4
 # edges, 160 events.
 SERVICE_SEGMENTS = "iid_campus:1.0:40,iid_campus:4.0:60,iid_campus:1.0:inf"
 SERVICE_STALENESS = 4
 SERVICE_EVENTS = 40
-SERVICE_CKPT_EVERY = 10
-SERVICE_RESUME_AT = 30
+SERVICE_CKPT_EVERY = 5
+SERVICE_RESUME_AT = 35
 SERVICE_STREAM_CHUNK = 32
-SERVICE_STREAM_EVENTS = 10
+SERVICE_STREAM_EVENTS = 4
 SERVICE_FAULT_SEED = 0        # edge_outage: an edge down at the t=40 s
-SERVICE_FAULT_EVENTS = 5      # boundary, its repair within 5 events
+SERVICE_FAULT_EVENTS = 4      # boundary, its repair within 4 events
 SERVICE_MODEL_TOL = 1e-6      # the JAX service's own resume rule
 STREAM_MERGE_TOL = 1e-5       # streamed against direct merge rows, as there
 SERVICE_CHUNK_SEED = 3       # distinct rows for K4 at the service's chunks
 KILL_UES, KILL_EDGES, KILL_EVENTS = 24, 4, 160
+KILL_CKPT_EVERY = 10
 KILL_TIMEOUT_S = 300
 # Phase 14: the rest of multi-device, 4 gloo ranks on the one card.  A 4 x 1
 # data mesh: phase 3's 5 edges of 20 UEs pack 2 + 1 + 1 + 1, so 40-row
@@ -394,7 +426,7 @@ KILL_TIMEOUT_S = 300
 MESH_RANKS = 4
 MESH_ROWS = 40
 MESH_TIMEOUT_S = 600
-MESH_CKPT_AT = 5                     # the service's checkpoint, of 10 events
+MESH_CKPT_AT = 2                     # the service's checkpoint, of 4 events
 MESH_STREAM_CHUNK = 32
 MESH_STREAM_SEED = 5
 ASYNC_SPREAD_SEEDS = SPREAD_SEEDS[:2]  # phase 14: two moves for async (its
@@ -431,6 +463,40 @@ TRAIN_LR = 3e-4
 TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 1, 64
 HFL_ARGV = ["--mode", "hfl", "--edges", "2", "--ues", "2", "--smoke",
             "--rounds", "2"]
+# Phase 17: the encoder-decoder stack, the vision frontend and bf16.
+# Whisper-base (arXiv:2212.04356) at full width in fp32: 6 encoder and 6
+# decoder layers, MHA of 8 heads of 64, 1,500 frames (the model's 30 s
+# window); the decoder's self-attention ring has 1,500 // 8 = 187 slots.
+WHISPER_ARCH = "whisper-base"
+WHISPER_PARAMS = 97_182_720
+WHISPER_LAYERS = 6
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_GEN = 8, 1500, 32
+WHISPER_CUT = 2                   # (b): 2 encoder and 2 decoder layers
+WHISPER_TRAIN_ARGV = ["--arch", WHISPER_ARCH, "--steps", "10", "--device",
+                      "cuda", "--log-every", "5"]
+# InternVL2-26B (arXiv:2404.16821) at full width in bf16: 48 layers, GQA
+# 48 over 8 heads of 128, 256 patch embeddings (one 448-px tile) before
+# 3,840 tokens; 39.7 GB of bf16 parameters (79.4 GB in fp32: no card).
+VLM_ARCH = "internvl2-26b"
+VLM_PARAMS = 19_861_260_288
+VLM_LAYERS = 48
+VLM_PROMPT = SERVE_PROMPT         # 256 patches + 3,840 tokens
+VLM_CPU_LAYERS, VLM_CPU_TOKENS = 2, 64
+VLM_MEMORY_LIMIT = 80e9
+# A bf16 run is held to a yardstick of bf16's own: the distance between
+# the plain route with bf16 activations and the same route with fp32
+# activations on the same bf16 weights (a 1e-7 move vanishes under bf16
+# rounding).  Two bf16 runs that round at other points each lie about
+# that far from the fp32-activation run, so they may lie up to twice it
+# apart: BF16_FACTOR.
+BF16_FACTOR = 2.0
+ATTN_WHISPER = (WHISPER_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64,
+                False, 0)
+ATTN_VLM = (SERVE_BATCH, VLM_PROMPT, VLM_PROMPT, 48, 8, 128, True, 0)
+DECODE_WHISPER = (WHISPER_BATCH, WHISPER_FRAMES // 8, 8, 8, 64,
+                  WHISPER_GEN - 1, 0, "prefix")
+DECODE_VLM = (SERVE_BATCH, 2 * VLM_PROMPT, 48, 8, 128, VLM_PROMPT, 0,
+              "prefix")
 
 KERNELS = {
     "segment_aggregate": dict(
@@ -1192,7 +1258,8 @@ def check_attention_against_plain(cases=None) -> float:
         if not bf16:
             worst = max(worst, err)
         print(f"  {'flash_attention':17s} {'-'.join(map(str, case)):32s} "
-              f"max|err| {err:.3e} (scale {scale:.3e})")
+              f"max|err| {err:.3e} (scale {scale:.3e}; tolerance "
+              f"{tol:.3e})")
     return worst
 
 
@@ -1229,9 +1296,10 @@ def check_scan_against_plain() -> float:
     return worst
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -1251,13 +1319,16 @@ def attention_yardsticks(q, k, v, causal: bool, window: int) -> dict:
     call); without a window, also with ``is_causal=True`` (no mask tensor,
     so the dead tiles can be skipped) on the expanded heads and, where this
     PyTorch takes it on the card, on the KV heads as they are with
-    ``enable_gqa=True``."""
+    ``enable_gqa=True``; bidirectional without a window, also with no
+    mask at all."""
     S, H = q.shape[1], q.shape[2]
     mask = fa.attention_mask(S, k.shape[1], causal, window, "cuda")
     qt, kt, vt = (expand_heads(t, H) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     calls = {"sdpa_mask": lambda: sdpa(qt, kt, vt,
                                        attn_mask=mask).transpose(1, 2)}
+    if not causal and window <= 0:
+        calls["sdpa_no_mask"] = lambda: sdpa(qt, kt, vt).transpose(1, 2)
     if causal and window <= 0 and S == k.shape[1]:
         calls["sdpa_is_causal"] = lambda: sdpa(
             qt, kt, vt, is_causal=True).transpose(1, 2)
@@ -1273,41 +1344,65 @@ def attention_yardsticks(q, k, v, causal: bool, window: int) -> dict:
     return calls
 
 
-def time_attention(case) -> dict:
+def lib_tol(ref) -> float:
+    """How far a library call may be from a plain version and still
+    compute the same function: 1e-3 in fp32; 8 bf16 ulps of the largest
+    value in bf16 (SDPA rounds its own intermediates)."""
+    if ref.dtype == torch.bfloat16:
+        return 8 * 2 ** -8 * float(ref.float().abs().max())
+    return 1e-3
+
+
+def bf16_bounds(r: dict, nbytes: float, flops: float) -> str:
+    """Set ``r``'s bound at the bf16 tensor-core rate (the least time of
+    the work on the card) and name the bound at the fp32 rate, which the
+    kernel's arithmetic runs at."""
+    r.update(bound(nbytes, flops, BF16_FLOPS_PER_S))
+    fp32 = bound(nbytes, flops)
+    return (f"; at the fp32 rate the kernel computes at, bound "
+            f"{fp32['bound_ms']:.4g} ms ({fp32['bound_by']}), kernel/bound "
+            f"{r['ms'] / fp32['bound_ms']:.2f}")
+
+
+def time_attention(case, dtype=torch.float32) -> dict:
     """``flash_attention`` at a serving shape, its plain version, the
     library yardsticks (``attention_yardsticks``, each checked against the
     plain version; ``library_ms`` is the fastest), and its bound from the
-    unmasked (query, key) pairs of this shape."""
+    unmasked (query, key) pairs of this shape: in bf16 at the bf16
+    tensor-core rate, the fp32 rate's bound printed beside it."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, S, _, H, K, hd, causal, window = case
-    q, k, v = attn_inputs(case)
+    q, k, v = attn_inputs(case, dtype)
     calls = attention_yardsticks(q, k, v, causal, window)
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     for name, call in calls.items():
-        lib_err = _max_err(call(), ref)
+        lib_err = _max_err(call().float(), ref.float())
         print(f"  {'flash_attention':17s} {name} vs plain max|err| "
               f"{lib_err:.3e}")
-        check(lib_err <= 1e-3, f"{name} computes the same function")
+        check(lib_err <= lib_tol(ref), f"{name} computes the same function")
     del ref
     iters = 10 if S > 256 else 100     # the CLI's prompt: microseconds
     lib = {name: time_ms(call, flush, iters, 2)
            for name, call in calls.items()}
     fastest = min(lib, key=lib.get)
     pairs = int(fa.attention_mask(S, S, causal, window, "cuda").sum()) * B * H
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     r = dict(ms=time_ms(lambda: fa.flash_attention(
                  q, k, v, causal=causal, window=window), flush, iters, 2),
              plain_ms=time_ms(lambda: fa.flash_attention_plain(
                  q, k, v, causal=causal, window=window), flush, iters // 2,
                  1),
              library_ms=lib[fastest], **bound(nbytes, 4 * hd * pairs))
-    print(f"  {'flash_attention':17s} {'-'.join(map(str, case))}: "
+    extra = (bf16_bounds(r, nbytes, 4 * hd * pairs)
+             if dtype == torch.bfloat16 else "")
+    print(f"  {'flash_attention':17s} {'-'.join(map(str, case))}"
+          f"{'-bf16' if extra else ''}: "
           f"kernel {r['ms']:.3f} ms   plain {r['plain_ms']:.3f} ms   "
           + "   ".join(f"{n} {t:.3f} ms" for n, t in lib.items())
           + f"   bound {r['bound_ms']:.3f} ms ({r['bound_by']}: {pairs} "
           f"unmasked pairs, {nbytes} B); kernel/bound "
           f"{r['ms'] / r['bound_ms']:.2f}, kernel/{fastest} "
-          f"{r['ms'] / r['library_ms']:.2f}")
+          f"{r['ms'] / r['library_ms']:.2f}{extra}")
     return r
 
 
@@ -1449,8 +1544,8 @@ def check_decode_against_plain(cases=None) -> float:
             worst = max(worst, err)
         splits, per = da.decode_splits(case[0] * case[3], case[1])
         print(f"  {'decode_attention':17s} {name:32s} max|err| {err:.3e} "
-              f"(scale {scale:.3e}; {splits} splits of at most {per} "
-              f"tiles)")
+              f"(scale {scale:.3e}; tolerance {tol:.3e}; {splits} splits "
+              f"of at most {per} tiles)")
     return worst
 
 
@@ -1478,42 +1573,47 @@ def decode_yardsticks(q, k, v, mask) -> dict:
     return calls
 
 
-def time_decode(case) -> dict:
+def time_decode(case, dtype=torch.float32) -> dict:
     """``decode_attention`` at a serving decode shape, its plain version,
     the library yardsticks (``decode_yardsticks``, each checked against the
     plain version; ``library_ms`` is the fastest) and its bound from the
     slots that count in this input: their K and V rows, q and the output
-    (fp32), slot_pos and pos."""
+    (of q's dtype), slot_pos and pos; in bf16 at the bf16 tensor-core
+    rate, the fp32 rate's bound printed beside it."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, W, H, K, hd, _, window, _ = case
-    q, k, v, sp, pos = decode_inputs(case)
+    q, k, v, sp, pos = decode_inputs(case, dtype)
     mask = da.valid_slots(sp, pos, window)
     calls = decode_yardsticks(q, k, v, mask)
     ref = da.decode_attention_plain(q, k, v, sp, pos, window=window)
     for name, call in calls.items():
-        lib_err = _max_err(call(), ref)
+        lib_err = _max_err(call().float(), ref.float())
         print(f"  {'decode_attention':17s} {name} vs plain max|err| "
               f"{lib_err:.3e}")
-        check(lib_err <= 1e-4, f"{name} computes the same function")
+        check(lib_err <= (1e-4 if dtype == torch.float32 else lib_tol(ref)),
+              f"{name} computes the same function")
     lib = {name: time_ms(call, flush) for name, call in calls.items()}
     fastest = min(lib, key=lib.get)
     n_valid = int(mask.sum())
-    nbytes = 4 * (2 * B * K * hd * n_valid + 2 * q.numel() + W + 1)
+    nbytes = (q.element_size() * (2 * B * K * hd * n_valid + 2 * q.numel())
+              + 4 * (W + 1))
+    flops = 4 * B * H * hd * n_valid
     r = dict(ms=time_ms(lambda: da.decode_attention(
                  q, k, v, sp, pos, window=window), flush),
              plain_ms=time_ms(lambda: da.decode_attention_plain(
                  q, k, v, sp, pos, window=window), flush),
-             library_ms=lib[fastest],
-             **bound(nbytes, 4 * B * H * hd * n_valid))
+             library_ms=lib[fastest], **bound(nbytes, flops))
+    extra = bf16_bounds(r, nbytes, flops) if dtype == torch.bfloat16 else ""
     splits, per = da.decode_splits(B * K, W)
-    print(f"  {'decode_attention':17s} {'-'.join(map(str, case))}: "
+    print(f"  {'decode_attention':17s} {'-'.join(map(str, case))}"
+          f"{'-bf16' if extra else ''}: "
           f"kernel {r['ms'] * 1e3:.2f} us   plain {r['plain_ms'] * 1e3:.2f} "
           "us   " + "   ".join(f"{n} {t * 1e3:.2f} us" for n, t in lib.items())
           + f"   bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
           f"{n_valid} of {W} slots count, {nbytes} B; {splits} splits of at "
           f"most {per} tiles); "
           f"kernel/bound {r['ms'] / r['bound_ms']:.2f}, kernel/{fastest} "
-          f"{r['ms'] / r['library_ms']:.2f}")
+          f"{r['ms'] / r['library_ms']:.2f}{extra}")
     return r
 
 
@@ -1917,7 +2017,7 @@ def print_serving_profile(kernels, wall_us, label) -> None:
     groups = {"flash_attention": ("flash_attention_kernel",),
               "rglru_scan": ("scan_kernel", "chunk_summary_kernel"),
               "decode_attention": ("decode_attention_kernel",),
-              "matrix products": ("gemm",)}
+              "matrix products": ("gemm", "nvjet")}
     shares = {name: sum(e.self_device_time_total for e in kernels
                         if any(k in e.key.lower() for k in keys))
               for name, keys in groups.items()}
@@ -3190,7 +3290,7 @@ def kill_args(ckpt_dir: str) -> list:
             "cuda", "--ues", str(KILL_UES), "--edges", str(KILL_EDGES),
             "--max-staleness", str(SERVICE_STALENESS), "--segments",
             SERVICE_SEGMENTS, "--max-updates", str(KILL_EVENTS),
-            "--ckpt-every", str(SERVICE_CKPT_EVERY), "--ckpt-dir", ckpt_dir]
+            "--ckpt-every", str(KILL_CKPT_EVERY), "--ckpt-dir", ckpt_dir]
 
 
 def kill_and_resume(ckpt_dir: str, procs: list) -> dict:
@@ -4176,6 +4276,298 @@ def phase_xlstm() -> None:
     print(f"(g) {time.perf_counter() - t0:.1f} s")
 
 
+def moved_frames(batch: dict, seed: int = 1) -> dict:
+    """``batch`` with its frames moved by SENSITIVITY_NOISE relative: with
+    ``perturbed``'s embedding move, a 1e-7 move of both inputs of an
+    encoder-decoder."""
+    x = batch["frames"]
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    noise = torch.randn(x.shape, generator=gen, device=x.device)
+    return dict(batch, frames=noise.mul_(SENSITIVITY_NOISE).add_(1.0).mul_(x))
+
+
+def served(model, params, batch, follow) -> tuple:
+    """Prefill logits and the teacher-forced decode logits of ``follow``."""
+    logits, state = model.prefill(params, batch)
+    return logits, teacher_forced(model, params, state, follow)
+
+
+def card_batch(cfg, batch: int, prompt: int) -> dict:
+    """The serving CLI's batch (``serve.serve_batch``, seed 0) on the card."""
+    return {k: torch.as_tensor(v, device="cuda")
+            for k, v in serve.serve_batch(cfg, batch, prompt, 0).items()}
+
+
+def hold_to_bf16(label: str, what: str, tested, reference, plain,
+                 wide) -> None:
+    """``tested`` within BF16_FACTOR times the bf16 yardstick of
+    ``reference``: the distance of ``plain`` (a bf16 plain-route run) from
+    ``wide``, the same route with fp32 activations on the same bf16
+    weights."""
+    diff, yard = max_diff(tested, reference), max_diff(plain, wide)
+    scale = max(float(t.float().abs().max()) for t in (
+        reference if isinstance(reference, list) else [reference]))
+    print(f"  {label}, {what} (bf16): max|diff| {diff:.3e}; bf16 yardstick "
+          f"(plain route, bf16 vs fp32 activations) {yard:.3e} (ratio "
+          f"{diff / max(yard, 1e-30):.2f}, allowed {BF16_FACTOR:g}); "
+          f"largest |logit| {scale:.3e}")
+    check(yard > 0, f"{label}, {what}: bf16 and fp32 activations agree "
+          "exactly")
+    check(diff <= BF16_FACTOR * yard, f"{label}, {what}: {diff:.3e} > "
+          f"{BF16_FACTOR} x bf16 yardstick {yard:.3e}")
+
+
+def phase_whisper() -> dict:
+    """Parts (a) and (b): the serving CLI at full-width Whisper-base (8 x
+    1,500 frames, 32 tokens: 6 ``flash_attention`` launches in the
+    encoder, 6 ``decode_attention`` a decoded token, the prefill's first
+    among them), then a 2 + 2-layer cut at B=1, 1,500 frames: kernel route
+    against plain route and card against CPU, prefill and TEACHER_STEPS
+    teacher-forced decode steps, held to SENSITIVITY_FACTOR times the
+    plain route's spread under a 1e-7 move of the embedding and the
+    frames.  Returns the counted launches and the CLI's times."""
+    check(Model(get_config(WHISPER_ARCH)).num_params() == WHISPER_PARAMS,
+          f"{WHISPER_ARCH}: parameters != {WHISPER_PARAMS}")
+    argv = ["--arch", WHISPER_ARCH, "--batch", str(WHISPER_BATCH),
+            "--prompt-len", str(WHISPER_FRAMES), "--gen", str(WHISPER_GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    cli = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expect(flash_attention=WHISPER_LAYERS,
+                  decode_attention=WHISPER_LAYERS * WHISPER_GEN)
+    print(f"(a) serve CLI {argv}: prefill {res['prefill_s']:.4f} s, decode "
+          f"{res['decode_s_per_token'] * 1e3:.3f} ms/token; launches {cli}; "
+          f"peak memory {peak} B")
+    check(cli == want, f"Whisper CLI launch counts {cli} != {want}")
+    check(tuple(res["tokens"].shape) == (WHISPER_BATCH, WHISPER_GEN),
+          "Whisper CLI: tokens")
+    model = Model(get_config(WHISPER_ARCH))
+    params = model.init(0)
+    state = model.prefill(params, card_batch(
+        model.cfg, WHISPER_BATCH, WHISPER_FRAMES))[1]
+    wall, kernels = device_profile(lambda: model.decode_step(
+        params, state, res["tokens"][:, :1]))
+    print_serving_profile(kernels, wall, "Whisper-base decode step")
+    del model, params, state
+
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH), num_layers=WHISPER_CUT,
+                              num_encoder_layers=WHISPER_CUT)
+    card = Model(cfg)
+    params = card.init(0)
+    batch = card_batch(cfg, CPU_BATCH, WHISPER_FRAMES)
+    follow = torch.as_tensor(TokenStream(cfg.vocab_size, seed=1).batch(
+        CPU_BATCH, TEACHER_STEPS)["tokens"], device="cuda")
+    reset_counts()
+    logits, decode = served(card, params, batch, follow)
+    torch.cuda.synchronize()
+    cut = counts()
+    want = expect(flash_attention=WHISPER_CUT,
+                  decode_attention=WHISPER_CUT * (1 + TEACHER_STEPS))
+    check(cut == want, f"Whisper cut launch counts {cut} != {want}")
+    naive = Model(cfg, impl="naive")
+    plain = served(naive, params, batch, follow)
+    moved = served(naive, perturbed(params), moved_frames(batch), follow)
+    what = f"{TEACHER_STEPS} teacher-forced decode steps' logits"
+    print(f"(b) {WHISPER_CUT} + {WHISPER_CUT} layers, B={CPU_BATCH}, "
+          f"{WHISPER_FRAMES} frames; launches {cut}")
+    hold_to_spread("kernel vs plain route", "prefill logits", logits,
+                   plain[0], plain[0], moved[0])
+    hold_to_spread("kernel vs plain route", what, decode, plain[1], plain[1],
+                   moved[1])
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = Model(cfg, device="cpu")
+    c_logits, c_decode = served(cpu, to_cpu(params), to_cpu(batch),
+                                follow.cpu())
+    hold_to_spread("card vs CPU", "prefill logits", logits.cpu(), c_logits,
+                   plain[0], moved[0])
+    hold_to_spread("card vs CPU", what, [t.cpu() for t in decode], c_decode,
+                   plain[1], moved[1])
+    return dict(launches={k: cli[k] + cut[k] for k in cli},
+                prefill_s=res["prefill_s"],
+                decode_s=res["decode_s_per_token"], peak=peak)
+
+
+def phase_vlm() -> dict:
+    """Part (c): full-width InternVL2-26B in bf16 (``Model(param_dtype=,
+    act_dtype=torch.bfloat16)``) through ``serve.generate``: B=2, 256
+    patches and 3,840 tokens, 32 greedy tokens, peak memory under 80 GB;
+    then a counted prefill (48 ``flash_attention`` launches) and
+    TEACHER_STEPS teacher-forced decode steps (48 ``decode_attention``
+    each), a profiled decode step, and the kernel route against the plain
+    route held to the bf16 yardstick (``hold_to_bf16``).  Returns the
+    counted launches, times and peak."""
+    bf = torch.bfloat16
+    cfg = get_config(VLM_ARCH)
+    model = Model(cfg, param_dtype=bf, act_dtype=bf)
+    check(model.num_params() == VLM_PARAMS,
+          f"{VLM_ARCH}: parameters != {VLM_PARAMS}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    print(f"(c) {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size},"
+          f" {cfg.num_prefix_embeds} patches; {model.num_params()} bf16 "
+          f"parameters from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated()} B allocated")
+    batch = card_batch(cfg, SERVE_BATCH, VLM_PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve.generate(model, params, batch, SERVE_GEN)
+    gen = counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = res["tokens"]
+    want = expect(flash_attention=VLM_LAYERS,
+                  decode_attention=VLM_LAYERS * (SERVE_GEN - 1))
+    print(f"generate B={SERVE_BATCH}, {cfg.num_prefix_embeds} patches + "
+          f"{VLM_PROMPT - cfg.num_prefix_embeds} tokens, {SERVE_GEN} greedy "
+          f"tokens: prefill {res['prefill_s']:.3f} s, decode "
+          f"{res['decode_s_per_token'] * 1e3:.3f} ms/token; launches {gen}; "
+          f"peak memory {peak} B; tokens[0, :16] {tokens[0, :16].tolist()}")
+    check(gen == want, f"InternVL2 generate launch counts {gen} != {want}")
+    check(peak < VLM_MEMORY_LIMIT, f"peak memory {peak} B >= "
+          f"{VLM_MEMORY_LIMIT:g}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "tokens in range")
+    follow = tokens[:, :TEACHER_STEPS]
+    reset_counts()
+    logits, state = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    pre = counts()
+    check(pre == expect(flash_attention=VLM_LAYERS),
+          f"InternVL2 prefill launch counts {pre}")
+    reset_counts()
+    decode = teacher_forced(model, params, state, follow)
+    torch.cuda.synchronize()
+    dec = counts()
+    check(dec == expect(decode_attention=VLM_LAYERS * TEACHER_STEPS),
+          f"InternVL2 decode launch counts {dec}")
+    check(logits.dtype == bf and all(t.dtype == bf for t in decode)
+          and state["scanned"]["k"].dtype == bf, "bf16 logits and cache")
+    check(bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in decode), "finite logits")
+    wall, kernels = device_profile(lambda: model.decode_step(
+        params, state, follow[:, :1]))
+    print_serving_profile(kernels, wall, "InternVL2-26B bf16 decode step")
+    del state
+    plain = served(Model(cfg, impl="naive", param_dtype=bf, act_dtype=bf),
+                   params, batch, follow)
+    wide = served(Model(cfg, impl="naive", param_dtype=bf,
+                        act_dtype=torch.float32), params, batch, follow)
+    print(f"  plain routes: peak memory {torch.cuda.max_memory_allocated()} B")
+    hold_to_bf16("kernel vs plain route", "prefill logits", logits, plain[0],
+                 plain[0], wide[0])
+    hold_to_bf16("kernel vs plain route", f"{TEACHER_STEPS} teacher-forced "
+                 "decode steps' logits", decode, plain[1], plain[1], wide[1])
+    return dict(launches={k: gen[k] + pre[k] + dec[k] for k in gen},
+                prefill_s=res["prefill_s"],
+                decode_s=res["decode_s_per_token"], peak=peak)
+
+
+def phase_vlm_card_vs_cpu() -> dict:
+    """Part (d): 2 layers of InternVL2-26B at full width in bf16, B=1, 256
+    patches and 64 tokens, CPU_STEPS teacher-forced decode steps: the
+    card's kernel route against the CPU's, held to the bf16 yardstick
+    measured on the card."""
+    bf = torch.bfloat16
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_CPU_LAYERS)
+    card = Model(cfg, param_dtype=bf, act_dtype=bf)
+    params = card.init(0)
+    batch = card_batch(cfg, CPU_BATCH, cfg.num_prefix_embeds + VLM_CPU_TOKENS)
+    follow = torch.as_tensor(TokenStream(cfg.vocab_size, seed=1).batch(
+        CPU_BATCH, CPU_STEPS)["tokens"], device="cuda")
+    reset_counts()
+    logits, decode = served(card, params, batch, follow)
+    torch.cuda.synchronize()
+    cut = counts()
+    want = expect(flash_attention=VLM_CPU_LAYERS,
+                  decode_attention=VLM_CPU_LAYERS * CPU_STEPS)
+    check(cut == want, f"InternVL2 cut launch counts {cut} != {want}")
+    plain = served(Model(cfg, impl="naive", param_dtype=bf, act_dtype=bf),
+                   params, batch, follow)
+    wide = served(Model(cfg, impl="naive", param_dtype=bf,
+                        act_dtype=torch.float32), params, batch, follow)
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = Model(cfg, param_dtype=bf, act_dtype=bf, device="cpu")
+    t0 = time.perf_counter()
+    c_logits, c_decode = served(cpu, to_cpu(params), to_cpu(batch),
+                                follow.cpu())
+    print(f"(d) {VLM_CPU_LAYERS} layers, B={CPU_BATCH}, "
+          f"{cfg.num_prefix_embeds} patches + {VLM_CPU_TOKENS} tokens + "
+          f"{CPU_STEPS} decode steps: CPU {time.perf_counter() - t0:.1f} s; "
+          f"launches {cut}")
+    hold_to_bf16("card vs CPU", "prefill logits", logits.cpu(), c_logits,
+                 plain[0].cpu(), wide[0].cpu())
+    hold_to_bf16("card vs CPU", "teacher-forced decode logits",
+                 [t.cpu() for t in decode], c_decode,
+                 [t.cpu() for t in plain[1]], [t.cpu() for t in wide[1]])
+    return cut
+
+
+def phase_whisper_train() -> None:
+    """Part (e): ``launch.train --arch whisper-base --steps 10`` at full
+    width on the card (B=8, 128 frames and 16 tokens a row, AdamW, the
+    ``xla_flash`` route): finite, falling losses, no kernel launch."""
+    from repro_torch.launch import train
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train.main(WHISPER_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    losses = res["losses"]
+    print(f"(e) train CLI {WHISPER_TRAIN_ARGV}: losses "
+          f"{[round(x, 4) for x in losses]} in "
+          f"{time.perf_counter() - t0:.1f} s; launches {counts()}")
+    check(len(losses) == 10 and bool(np.isfinite(losses).all()),
+          "finite Whisper training losses")
+    check(losses[-1] < losses[0], f"Whisper losses not falling: {losses}")
+    check(counts() == expect(), f"Whisper training launched {counts()}")
+
+
+def phase_frontends() -> dict:
+    """Phase 17: parts (a)-(e), then ``flash_attention`` and
+    ``decode_attention`` at Whisper's shapes (fp32) and InternVL2's (bf16,
+    their own lines and tolerances) against their plain versions, timed.
+    Returns the model runs' launches, the fp32 errors and each part's
+    numbers."""
+    out = {}
+    t0 = time.perf_counter()
+    out["whisper"] = phase_whisper()
+    print(f"(a, b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["vlm"] = phase_vlm()
+    print(f"(c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cut = phase_vlm_card_vs_cpu()
+    print(f"(d) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_whisper_train()
+    print(f"(e) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["errs"] = dict(
+        flash_attention=check_attention_against_plain([ATTN_WHISPER]),
+        decode_attention=check_decode_against_plain([(DECODE_WHISPER,
+                                                      False)]))
+    check_attention_against_plain([ATTN_VLM + ("bf16",)])
+    check_decode_against_plain([(DECODE_VLM, True)])
+    out["timing"] = dict(
+        whisper_flash=time_attention(ATTN_WHISPER),
+        whisper_decode=time_decode(DECODE_WHISPER),
+        vlm_flash=time_attention(ATTN_VLM, torch.bfloat16),
+        vlm_decode=time_decode(DECODE_VLM, torch.bfloat16))
+    print(f"kernels {time.perf_counter() - t0:.1f} s")
+    out["launches"] = {k: out["whisper"]["launches"][k]
+                       + out["vlm"]["launches"][k] + cut[k] for k in cut}
+    return out
+
+
 def time_aggregation() -> int:
     """``--time-aggregation``: K1, K2, K3 and K4 timed at the paths'
     shapes and phase 6, nothing else.  Only the wrappers' signatures are
@@ -4416,6 +4808,15 @@ def main(argv=None) -> int:
         launches[name] += moe_run["launches"][name] + mixtral[name]
         errs[name] = max(errs[name], moe_run["errs"][name])
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    print("== phase 17: the encoder-decoder stack (full-width Whisper-base) "
+          "and the vision frontend in bf16 (full-width InternVL2-26B)")
+    t0 = time.perf_counter()
+    fronts = phase_frontends()
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] += fronts["launches"][name]
+        errs[name] = max(errs[name], fronts["errs"][name])
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s on {card_line()}")
     print("kernels: " + ", ".join(KERNELS))

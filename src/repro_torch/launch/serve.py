@@ -1,7 +1,11 @@
 """Batched serving driver: prefill + greedy decode with a KV cache.
-Ported from the JAX package's ``repro/launch/serve.py`` (plain-token
-models, dense, MoE and xLSTM; the encoder-decoder and vision branches are
-not ported yet).
+Ported from the JAX package's ``repro/launch/serve.py``: plain-token
+models (dense, MoE, recurrent, xLSTM), the encoder-decoder (Whisper: the
+prompt length is its frame count, the decoder prompt ``S //
+decoder_len_ratio`` tokens) and the vision model (InternVL2:
+``num_prefix_embeds`` patch embeddings before ``S - P`` tokens); frames
+and patches are random normals from ``--seed``, as the reference draws
+them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve   # StableLM-1.6B, card
@@ -13,6 +17,12 @@ not ported yet).
       --batch 2 --prompt-len 4096 --gen 32          # 57.3 GB, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --smoke --device cpu --batch 2 --prompt-len 64 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --smoke --device cpu --batch 2 --prompt-len 256 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --batch 8 --prompt-len 1500 --gen 32     # 30 s of frames, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
+      --smoke --device cpu --batch 2 --prompt-len 80 --gen 8
 
 Parameters are random, from ``--seed``; prompts come from
 ``TokenStream``.  Prints the prefill time and the decode time per token.
@@ -22,6 +32,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_config
@@ -35,16 +46,42 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, prompts, gen: int) -> dict:
-    """Prefill ``prompts`` (B, S) and decode ``gen`` tokens greedily, the
-    first from the prefill logits.  Returns the tokens (B, gen) int32, the
+def serve_batch(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """The CLI's prefill batch, numpy arrays drawn as the reference draws
+    them: ``TokenStream(seed)`` prompts of ``prompt_len`` tokens; for an
+    encoder-decoder ``prompt_len`` frames of ``default_rng(seed)``
+    normals and the first ``prompt_len // decoder_len_ratio`` tokens, for
+    a vision model ``num_prefix_embeds`` patches of them and the first
+    ``prompt_len - num_prefix_embeds`` tokens."""
+    B, S = batch, prompt_len
+    prompts = TokenStream(cfg.vocab_size, seed=seed).batch(B, S)["tokens"]
+    if cfg.encoder_decoder:
+        rng = np.random.default_rng(seed)
+        return {"frames": rng.normal(0, 1, (B, S, cfg.d_model)).astype(
+                    np.float32),
+                "tokens": prompts[:, : S // cfg.decoder_len_ratio]}
+    if cfg.frontend == "vision":
+        P = cfg.num_prefix_embeds
+        rng = np.random.default_rng(seed)
+        return {"patches": rng.normal(0, 1, (B, P, cfg.d_model)).astype(
+                    np.float32),
+                "tokens": prompts[:, : S - P]}
+    return {"tokens": prompts}
+
+
+def generate(model, params, batch, gen: int) -> dict:
+    """Prefill ``batch`` (a dict of the model's prefill inputs, or the
+    prompts (B, S) alone) and decode ``gen`` tokens greedily, the first
+    from the prefill logits.  Returns the tokens (B, gen) int32, the
     prefill seconds and the decode seconds per token (over the ``gen - 1``
     decode steps), both ended by a device synchronisation."""
     dev = model.device
-    prompts = torch.as_tensor(prompts, device=dev)
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = model.prefill(params, {"tokens": prompts})
+    logits, state = model.prefill(params, batch)
     next_tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -75,13 +112,11 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    # the encoder-decoder and vision models raise NotImplementedError here
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     B, S = args.batch, args.prompt_len
-    prompts = TokenStream(cfg.vocab_size, seed=args.seed).batch(B, S)["tokens"]
-
-    res = generate(model, params, prompts, args.gen)
+    res = generate(model, params, serve_batch(cfg, B, S, args.seed),
+                   args.gen)
     gen = res["tokens"]
     assert bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
     print(f"prefill: B={B} S={S} in {res['prefill_s'] * 1e3:.1f} ms")

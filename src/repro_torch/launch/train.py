@@ -1,6 +1,7 @@
 """End-to-end training launcher, ported from the JAX package's
-``repro/launch/train.py`` (plain-token models, dense, MoE and xLSTM; the
-encoder-decoder and vision branches are not ported yet).
+``repro/launch/train.py``: every architecture, the encoder-decoder and
+vision models with random frame and patch embeddings drawn from the
+step's seed, as the reference draws them.
 
 Two modes:
 
@@ -22,6 +23,8 @@ kernels have no backward).  Examples:
       --smoke --steps 10 --device cpu      # the loss adds the MoE aux loss
   PYTHONPATH=src python -m repro_torch.launch.train --mode hfl --edges 2 \\
       --ues 2 --smoke --rounds 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
+      --steps 10     # full width on the card: 128 frames, 16 tokens a row
 """
 from __future__ import annotations
 
@@ -48,10 +51,27 @@ RANK_TIMEOUT_S = 3600.0
 
 def batch_for(model, stream, b, s, step):
     """A ``(b, s)`` batch of ``stream`` on the model's device.  As in the
-    reference, the token stream's batch does not depend on ``step``."""
-    del step
-    return {k: torch.as_tensor(v, device=model.device)
-            for k, v in stream.batch(b, s).items()}
+    reference, the token stream's batch does not depend on ``step``; an
+    encoder-decoder takes ``s`` frames and the first ``s //
+    decoder_len_ratio`` tokens and targets, a vision model
+    ``num_prefix_embeds`` patches and the first ``s - num_prefix_embeds``,
+    the frames and patches normals from ``default_rng(step)``."""
+    cfg = model.cfg
+    d = stream.batch(b, s)
+    if cfg.encoder_decoder:
+        st = s // cfg.decoder_len_ratio
+        rng = np.random.default_rng(step)
+        d = {"frames": rng.normal(0, 1, (b, s, cfg.d_model)).astype(
+                 np.float32),
+             "tokens": d["tokens"][:, :st], "targets": d["targets"][:, :st]}
+    elif cfg.frontend == "vision":
+        P = cfg.num_prefix_embeds
+        rng = np.random.default_rng(step)
+        d = {"patches": rng.normal(0, 1, (b, P, cfg.d_model)).astype(
+                 np.float32),
+             "tokens": d["tokens"][:, :s - P],
+             "targets": d["targets"][:, :s - P]}
+    return {k: torch.as_tensor(v, device=model.device) for k, v in d.items()}
 
 
 def _sync(device) -> None:
@@ -64,7 +84,6 @@ def run_dp(args) -> dict:
     loss of every step and the seconds of every step (each ended by
     reading its loss)."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    # the encoder-decoder and vision models raise NotImplementedError here
     model = build_model(cfg, impl="xla_flash", device=args.device)
     stream = TokenStream(cfg.vocab_size, seed=0)
     params = model.init(args.seed)

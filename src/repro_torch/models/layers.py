@@ -6,12 +6,18 @@ package's layout, so its parameters load unchanged
 (``repro_torch.weights.from_jax_params``).  Every module exposes
   specs(cfg)  -> tree of Spec (shape + logical axes + init)
   apply(...)  -> forward
-and ``init_tree`` turns a spec tree into parameters.  The logical axes are
-kept for the layout's sake; the port runs on one card and shards nothing.
+and ``init_tree`` turns a spec tree into parameters (``param_shapes`` into
+shape-and-dtype stand-ins).  The logical axes are kept for the layout's
+sake; the port runs on one card and shards nothing.
+
+Products of two dtypes (a bf16 activation with fp32 weights, or the
+reverse) go through ``matmul`` and ``einsum``: ``jnp`` promotes their
+operands to the common dtype, where torch's products raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -62,27 +68,73 @@ def stack_specs(spec_tree, n: int, axis_name: str = "layer"):
 _TRUNC = math.erf(2.0 / math.sqrt(2.0))
 
 
-def init_tree(generator: torch.Generator, spec_tree):
-    """fp32 parameters for ``spec_tree`` on ``generator``'s device: "normal"
-    leaves are a normal truncated to [-2, 2] times ``1/sqrt(fan_in)``,
-    drawn leaf after leaf from ``generator`` (written in place, so a leaf
-    takes no temporaries: a full-width embedding is 4.2 GB).  The draws
-    differ from ``jax.random``'s; carry JAX parameters across with
-    ``repro_torch.weights.from_jax_params`` to compare the packages."""
+def _draw(generator, shape, std):
+    """fp32 normal truncated to [-2, 2] times ``std``, written in place."""
+    t = torch.empty(shape, device=generator.device)
+    t.uniform_(-_TRUNC, _TRUNC, generator=generator)
+    return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
+
+
+def init_tree(generator: torch.Generator, spec_tree, dtype=torch.float32):
+    """Parameters of ``dtype`` for ``spec_tree`` on ``generator``'s device:
+    "normal" leaves are a normal truncated to [-2, 2] times
+    ``1/sqrt(fan_in)``, drawn in fp32 leaf after leaf from ``generator``
+    (written in place, so an fp32 leaf takes no temporaries: a full-width
+    embedding is 4.2 GB), then rounded to ``dtype``, as the reference
+    draws and rounds.  Below fp32 a stacked leaf (leading ``"layer"``
+    axis) is drawn and rounded one layer at a time, so its fp32 copy never
+    exists whole: InternVL2-26B's stacked MLP leaf would take 19.3 GB.
+    The draws differ from ``jax.random``'s; carry JAX parameters across
+    with ``repro_torch.weights.from_jax_params`` to compare the
+    packages."""
     dev = generator.device
 
     def one(spec: Spec):
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, device=dev)
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
         if spec.init == "ones":
-            return torch.ones(spec.shape, device=dev)
+            return torch.ones(spec.shape, dtype=dtype, device=dev)
         fan_in = spec.fan_in or (spec.shape[0] if spec.shape else 1)
         std = 1.0 / math.sqrt(max(fan_in, 1))
-        t = torch.empty(spec.shape, device=dev)
-        t.uniform_(-_TRUNC, _TRUNC, generator=generator)
-        return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
+        if dtype == torch.float32 or spec.axes[:1] != ("layer",):
+            return _draw(generator, spec.shape, std).to(dtype)
+        t = torch.empty(spec.shape, dtype=dtype, device=dev)
+        for layer in t:
+            layer.copy_(_draw(generator, spec.shape[1:], std))
+        return t
 
     return map_specs(one, spec_tree)
+
+
+def param_shapes(spec_tree, dtype=torch.float32):
+    """Stand-ins for the parameters of ``spec_tree``: tensors of ``dtype``
+    on the ``meta`` device (shape and dtype, no storage), the counterpart
+    of the reference's ``shape_tree``."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=dtype,
+                                           device="meta"), spec_tree)
+
+
+# --------------------------------------------------------------------------
+# Products of mixed dtypes
+# --------------------------------------------------------------------------
+
+def promoted(*ts):
+    """``ts`` cast to their common dtype (``torch.promote_types``); a
+    tensor already of that dtype is returned as it is."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t.to(dt) for t in ts]
+
+
+def matmul(a, b):
+    """``a @ b`` in the promoted dtype of the two, as ``jnp`` computes it."""
+    a, b = promoted(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *operands):
+    """``torch.einsum`` in the promoted dtype of the operands, as
+    ``jnp.einsum`` computes it."""
+    return torch.einsum(eq, *promoted(*operands))
 
 
 # --------------------------------------------------------------------------
@@ -148,10 +200,10 @@ def mlp_specs(cfg, d_ff: Optional[int] = None):
 def apply_mlp(cfg, p, x):
     a = act_fn(cfg.act)
     if "wi_gate" in p:
-        h = a(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = a(matmul(x, p["wi_gate"])) * matmul(x, p["wi_up"])
     else:
-        h = a(x @ p["wi"])
-    return h @ p["wo"]
+        h = a(matmul(x, p["wi"]))
+    return matmul(h, p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -198,3 +250,15 @@ def apply_rope(x, positions, inv_freqs):
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d: int, device=None):
+    """(seq_len, d) fp32 sinusoidal position table: sines in the even
+    columns, cosines in the odd."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((seq_len, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, : (d + 1) // 2])
+    return pe

@@ -1,6 +1,7 @@
 """Public model API of the transformer stack: ``build_model(cfg) -> Model``.
 Ported from the JAX package's ``repro/models/model.py``: ``param_specs``,
-``init``, ``axes``, ``num_params``, the training loss (``loss``, through
+``init``, ``axes``, ``param_shapes``, ``num_params``, the training loss
+(``loss``, through
 ``chunked_cross_entropy``), ``prefill``, ``init_decode_state``,
 ``decode_step`` and the ``input_specs``/``input_axes`` of a batch.
 
@@ -20,19 +21,29 @@ Ported from the JAX package's ``repro/models/model.py``: ``param_specs``,
   mLSTM in its chunkwise-parallel form (``apply_mlstm_chunked``).
 Homogeneous dense stacks keep the reference's ``"scanned"`` layout
 (stacked parameters and decode state; ``models/transformer.py``).
-Parameters, activations and the decode state are fp32 (the reference's
-default ``param_dtype``/``act_dtype``), and prefill sizes the caches of
-global-attention layers for one more prompt length (its default
-``decode_margin``).  ``remat=True`` (the reference's default) recomputes
-each layer's activations in the backward (``torch.utils.checkpoint``).
+``param_dtype`` and ``act_dtype`` (torch dtypes, fp32 by default, as the
+reference's) set the parameters' dtype and the activations' (the
+embedding, the frames and patches, and the unembedding are cast to
+``act_dtype``); a product of two dtypes computes in the promoted one, as
+``jnp`` does, so every output has the reference's dtype.  The decode
+state's k, v and conv history are bf16 under bf16 activations, else fp32.
+Prefill sizes the caches of global-attention layers for ``decode_margin``
+more slots (0: one more prompt length, the reference's default).
+``remat=True`` (the reference's default) recomputes each layer's
+activations in the backward (``torch.utils.checkpoint``).
 
-Only plain-token models are ported, dense, MoE (``models/moe.py``) and
-xLSTM alike: the encoder-decoder and vision configs raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14).
+The frontends are stubs, as in the reference: an ``"audio"`` model
+(Whisper, encoder-decoder) takes frame embeddings, a ``"vision"`` model
+(InternVL2) patch embeddings that go before its tokens.  An
+encoder-decoder prefill runs the encoder, projects each decoder layer's
+cross-attention K/V and decodes the prompt's first token; its decoder's
+self-attention ring has ``frames // decoder_len_ratio`` slots.
 
 Batch layouts (see ``input_specs``):
   train   {'tokens', 'targets': (B, S) int}
-  prefill {'tokens': (B, S) int}
+          (+ 'patches' (B, P, D) for vision, 'frames' (B, S, D) for audio,
+          whose tokens and targets are (B, S // decoder_len_ratio))
+  prefill {'tokens'} (+ 'patches' or 'frames')
   decode  {'tokens': (B, 1)} with a separate decode-state tree
 """
 from __future__ import annotations
@@ -46,9 +57,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (
-    apply_norm, embed_specs, embed_tokens, init_tree, map_specs, norm_specs,
-    spec_leaves, unembed_matrix,
+    apply_mlp, apply_norm, embed_specs, embed_tokens, init_tree, map_specs,
+    matmul, norm_specs, param_shapes, sinusoidal_positions, spec_leaves,
+    unembed_matrix,
 )
 
 IMPLS = ("kernel", "xla_flash", "naive", "chunked")
@@ -78,7 +91,7 @@ def chunked_cross_entropy(hidden, w_unembed, targets, mask=None, chunk=512):
     for i in range(0, n * chunk, chunk):
         h, t, m = (hidden[:, i:i + chunk], targets[:, i:i + chunk],
                    mask[:, i:i + chunk].to(torch.float32))
-        logits = (h @ w_unembed).to(torch.float32)
+        logits = matmul(h, w_unembed).to(torch.float32)
         lse = torch.logsumexp(logits, -1)
         ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
         loss = loss + torch.sum((lse - ll) * m)
@@ -88,17 +101,19 @@ def chunked_cross_entropy(hidden, w_unembed, targets, mask=None, chunk=512):
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, impl: str = "kernel",
-                 remat: bool = True, device=None):
+                 param_dtype=torch.float32, act_dtype=torch.float32,
+                 remat: bool = True, decode_margin: int = 0, device=None):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"the {cfg.frontend!r} frontend is not ported to repro_torch "
-                "yet (ROADMAP Queue 1 item 14)")
         tfm.check_config(cfg)
         self.cfg = cfg
         self.impl = impl
+        self.param_dtype = param_dtype
+        self.act_dtype = act_dtype
         self.remat = remat
+        # extra KV-cache slots reserved past the prompt by prefill()
+        # (0 -> reserve one prompt-length's worth)
+        self.decode_margin = decode_margin
         self.device = resolve_device(device)
 
     # -- params ------------------------------------------------------------
@@ -106,96 +121,221 @@ class Model:
     def param_specs(self):
         s: Dict[str, Any] = dict(embed_specs(self.cfg))
         s["final_norm"] = norm_specs(self.cfg)
-        s.update(tfm.stack_specs_tree(self.cfg))
+        if self.cfg.encoder_decoder:
+            s.update(tfm.encdec_specs_tree(self.cfg))
+        else:
+            s.update(tfm.stack_specs_tree(self.cfg))
         return s
 
     def init(self, rng):
-        """Parameters on the model's device.  ``rng``: a ``torch.Generator``
-        on that device, or an int seed for one."""
+        """Parameters of ``param_dtype`` on the model's device.  ``rng``: a
+        ``torch.Generator`` on that device, or an int seed for one."""
         if not isinstance(rng, torch.Generator):
             rng = torch.Generator(device=self.device).manual_seed(int(rng))
         if rng.device.type != self.device.type:
             raise ValueError(f"generator on {rng.device}, model on "
                              f"{self.device}")
-        return init_tree(rng, self.param_specs())
+        return init_tree(rng, self.param_specs(), self.param_dtype)
 
     def axes(self):
         """The logical axes of every parameter (the tree of ``init``)."""
         return map_specs(lambda s: s.axes, self.param_specs())
+
+    def param_shapes(self):
+        """``meta`` tensors of ``param_dtype`` shaped as the parameters."""
+        return param_shapes(self.param_specs(), self.param_dtype)
 
     def num_params(self) -> int:
         return sum(math.prod(s.shape) for s in spec_leaves(self.param_specs()))
 
     # -- forward -----------------------------------------------------------
 
+    def _input(self, batch, key):
+        """``batch[key]`` (frames or patches) on the model's device, cast to
+        ``act_dtype``."""
+        return torch.as_tensor(batch[key], device=self.device).to(
+            self.act_dtype)
+
     def _embed(self, params, tokens):
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        return embed_tokens(params, tokens)
+        return embed_tokens(params, tokens).to(self.act_dtype)
 
     def _logits(self, params, x):
         x = apply_norm(self.cfg, params["final_norm"], x)
-        return x @ unembed_matrix(self.cfg, params)
+        return matmul(x, unembed_matrix(self.cfg, params).to(self.act_dtype))
+
+    def _prefix(self, params, batch):
+        """The backbone's input: the token embeddings, after the patch
+        embeddings of a vision model."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.frontend == "vision":
+            x = torch.cat([self._input(batch, "patches"), x], 1)
+        return x
 
     def _hidden_train(self, params, batch):
         """Returns (hidden_for_loss, targets, aux)."""
-        x = self._embed(params, batch["tokens"])
-        x, aux = tfm.apply_stack(self.cfg, params, x, impl=self.impl,
-                                 remat=self.remat)
-        x = apply_norm(self.cfg, params["final_norm"], x)
-        return x, torch.as_tensor(batch["targets"], device=self.device), aux
+        cfg = self.cfg
+        targets = torch.as_tensor(batch["targets"], device=self.device)
+        if cfg.encoder_decoder:
+            enc = tfm.apply_encoder(cfg, params, self._input(batch, "frames"),
+                                    impl=self.impl, remat=self.remat)
+            tok = self._embed(params, batch["tokens"])
+            tok = tok + sinusoidal_positions(
+                tok.shape[1], cfg.d_model, tok.device).to(tok.dtype)
+            h = tfm.apply_decoder(cfg, params, tok, enc, impl=self.impl,
+                                  remat=self.remat)
+            h = apply_norm(cfg, params["final_norm"], h)
+            return h, targets, torch.zeros((), device=self.device)
+        x, aux = tfm.apply_stack(cfg, params, self._prefix(params, batch),
+                                 impl=self.impl, remat=self.remat)
+        x = apply_norm(cfg, params["final_norm"], x)
+        if cfg.frontend == "vision":
+            # the rows of the last patch and every token but the last, as
+            # the reference reads them
+            P, St = cfg.num_prefix_embeds, targets.shape[1]
+            x = x[:, P - 1:P - 1 + St]
+        return x, targets, aux
 
     def loss(self, params, batch):
         """Mean next-token cross entropy plus the MoE aux loss (the layers'
         load-balance and z losses summed; 0 without experts).  Returns
         (ce + aux, {"ce": ce, "aux": aux}), 0-d float32 tensors."""
         h, targets, aux = self._hidden_train(params, batch)
-        w = unembed_matrix(self.cfg, params)
+        w = unembed_matrix(self.cfg, params).to(self.act_dtype)
         loss_sum, count = chunked_cross_entropy(h, w, targets,
                                                 chunk=self.cfg.loss_chunk)
         loss = loss_sum / torch.clamp_min(count, 1.0)
         return loss + aux, {"ce": loss, "aux": aux}
 
     def prefill(self, params, batch):
-        """Full-prompt forward; returns (last_logits (B,1,V), decode_state)."""
-        x = self._embed(params, batch["tokens"])
-        x, state = tfm.prefill_stack(self.cfg, params, x,
-                                     cache_len=2 * x.shape[1], impl=self.impl)
+        """Full-prompt forward; returns (last_logits (B,1,V), decode_state).
+        An encoder-decoder's prefill encodes the frames and decodes the
+        prompt's first token (the reference feeds it no more)."""
+        cfg = self.cfg
+        if cfg.encoder_decoder:
+            frames = self._input(batch, "frames")
+            enc = tfm.apply_encoder(cfg, params, frames, impl=self.impl,
+                                    remat=False)
+            tokens = torch.as_tensor(batch["tokens"], device=self.device)
+            state = self._encdec_state(params, enc, tokens.shape[0],
+                                       frames.shape[1] // cfg.decoder_len_ratio)
+            return self.decode_step(params, state, tokens[:, :1])
+        x = self._prefix(params, batch)
+        S = x.shape[1]
+        x, state = tfm.prefill_stack(cfg, params, x,
+                                     cache_len=S + (self.decode_margin or S),
+                                     impl=self.impl, dtype=self._state_dtype)
         return self._logits(params, x[:, -1:]), state
 
     # -- decode ------------------------------------------------------------
 
+    @property
+    def _state_dtype(self):
+        return (torch.bfloat16 if self.act_dtype == torch.bfloat16
+                else torch.float32)
+
     def init_decode_state(self, batch_size: int, max_len: int):
-        return tfm.init_stack_state(self.cfg, batch_size, max_len,
-                                    device=self.device)
+        cfg, dt = self.cfg, self._state_dtype
+        if cfg.encoder_decoder:
+            dec_len = max(max_len // cfg.decoder_len_ratio, 8)
+            shape = (batch_size, max_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            cross = [{"k": torch.zeros(shape, dtype=dt, device=self.device),
+                      "v": torch.zeros(shape, dtype=dt, device=self.device)}
+                     for _ in range(cfg.num_layers)]
+            return {"cross": cross, "self": self._self_state(batch_size,
+                                                             dec_len)}
+        return tfm.init_stack_state(cfg, batch_size, max_len,
+                                    device=self.device, dtype=dt)
+
+    def _self_state(self, batch: int, dec_len: int) -> list:
+        return [tfm.init_layer_state(self.cfg, "attn", batch, dec_len,
+                                     self.device, self._state_dtype)
+                for _ in range(self.cfg.num_layers)]
+
+    def _encdec_state(self, params, enc_out, batch: int, dec_len: int):
+        """The decode state after encoding: each decoder layer's
+        cross-attention K/V of ``enc_out`` and an empty self-attention ring
+        of ``dec_len`` slots."""
+        dt = self._state_dtype
+        cross = []
+        for lp in params["decoder"]:
+            k, v = attn_mod.encode_kv(self.cfg, lp["xattn"], enc_out)
+            cross.append({"k": k.to(dt), "v": v.to(dt)})
+        return {"cross": cross, "self": self._self_state(batch, dec_len)}
 
     def decode_step(self, params, state, tokens):
         """tokens: (B,1) -> (logits (B,1,V), new_state)."""
+        cfg = self.cfg
         x = self._embed(params, tokens)
-        x, state = tfm.decode_stack(self.cfg, params, x, state,
-                                    impl=self.impl)
-        return self._logits(params, x), state
+        if not cfg.encoder_decoder:
+            x, state = tfm.decode_stack(cfg, params, x, state,
+                                        impl=self.impl)
+            return self._logits(params, x), state
+        # the token's position from the device (no host read)
+        x = x + _sinusoid_at(state["self"][0]["pos"], cfg.d_model).to(x.dtype)
+        new_self = []
+        for lp, st, cr in zip(params["decoder"], state["self"],
+                              state["cross"]):
+            h, st = attn_mod.decode_self_attention(
+                cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x), st, window=0,
+                impl=self.impl)
+            x = x + h
+            x = x + attn_mod.cross_attention(
+                cfg, lp["xattn"], apply_norm(cfg, lp["ln_x"], x), cr["k"],
+                cr["v"], impl=self.impl)
+            x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+            new_self.append(st)
+        return self._logits(params, x), {"cross": state["cross"],
+                                         "self": new_self}
 
     # -- input specs ---------------------------------------------------------
 
     def input_specs(self, shape: ShapeConfig):
         """Stand-ins for every model input: tensors on the ``meta`` device
         (shape and dtype, no storage), the counterpart of the reference's
-        ``jax.ShapeDtypeStruct``s."""
+        ``jax.ShapeDtypeStruct``s; frames and patches of ``act_dtype``."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
 
         def tok(b, s):
             return torch.empty((b, s), dtype=torch.int32, device="meta")
 
+        def emb(b, s):
+            return torch.empty((b, s, cfg.d_model), dtype=self.act_dtype,
+                               device="meta")
+
         if shape.kind == "decode":
             return {"tokens": tok(B, 1)}
-        d = {"tokens": tok(B, S)}
+        if cfg.encoder_decoder:
+            St = S // cfg.decoder_len_ratio
+            d = {"frames": emb(B, S), "tokens": tok(B, St)}
+        elif cfg.frontend == "vision":
+            St = S - cfg.num_prefix_embeds
+            d = {"patches": emb(B, cfg.num_prefix_embeds),
+                 "tokens": tok(B, St)}
+        else:
+            St = S
+            d = {"tokens": tok(B, S)}
         if shape.kind == "train":
-            d["targets"] = tok(B, S)
+            d["targets"] = tok(B, St)
         return d
 
     def input_axes(self, shape: ShapeConfig):
         """Logical axes matching ``input_specs``."""
-        return {k: ("batch", "seq") for k in self.input_specs(shape)}
+        return {k: ("batch", "seq", "act_embed") if k in ("frames", "patches")
+                else ("batch", "seq") for k in self.input_specs(shape)}
+
+
+def _sinusoid_at(pos, d: int):
+    """(d,) fp32 sinusoidal position of the 0-d int tensor ``pos``,
+    computed on its device."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float() / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((d,), dtype=torch.float32, device=pos.device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang[: (d + 1) // 2])
+    return pe
 
 
 def build_model(cfg: ModelConfig, **kw) -> Model:

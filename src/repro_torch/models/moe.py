@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import Spec, act_fn
+from repro_torch.models.layers import Spec, act_fn, matmul
 
 # Capacity rounding granularity (the reference's, MXU-friendly there).
 _CAP_ALIGN = 8
@@ -65,7 +65,7 @@ def _one_hot(idx, n: int, dtype):
 
 def router_probs(router_w, xt):
     """The router's float32 logits and softmax probabilities, (T, E)."""
-    logits = (xt @ router_w).to(torch.float32)
+    logits = matmul(xt, router_w).to(torch.float32)
     return logits, torch.softmax(logits, -1)
 
 
@@ -106,8 +106,8 @@ def _expert_ffn(cfg, p, buf, E: int, C: int):
     """buf (E*C+1, D) -> (E*C+1, D), the overflow row's output zeros."""
     a = act_fn(cfg.act)
     eb = buf[: E * C].reshape(E, C, -1)
-    h = a(torch.bmm(eb, p["w_gate"])) * torch.bmm(eb, p["w_up"])
-    out = torch.bmm(h, p["w_down"]).reshape(E * C, -1)
+    h = a(matmul(eb, p["w_gate"])) * matmul(eb, p["w_up"])
+    out = matmul(h, p["w_down"]).reshape(E * C, -1)
     return torch.cat([out, torch.zeros_like(out[:1])], 0)
 
 
@@ -142,6 +142,6 @@ def apply_moe(cfg, p, x, mesh=None, rules=None):
     if cfg.num_shared_experts > 0:
         sp = p["shared"]
         a = act_fn(cfg.act)
-        h = a(x @ sp["wi_gate"]) * (x @ sp["wi_up"])
-        y = y + (h @ sp["wo"]) * torch.sigmoid(x @ sp["gate"])
+        h = a(matmul(x, sp["wi_gate"])) * matmul(x, sp["wi_up"])
+        y = y + matmul(h, sp["wo"]) * torch.sigmoid(matmul(x, sp["gate"]))
     return y, aux

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan as scan
-from repro_torch.models.layers import Spec, act_fn
+from repro_torch.models.layers import Spec, act_fn, einsum, matmul
 
 _RGLRU_C = 8.0
 
@@ -59,8 +59,8 @@ def _causal_depthwise_conv(x, w, b, state: Optional[torch.Tensor] = None):
 
 def _rglru_gates(p, xi):
     """Per-step gate computation.  xi: (..., D) conv output."""
-    r = torch.sigmoid(xi @ p["w_a"] + p["b_a"])
-    i = torch.sigmoid(xi @ p["w_x"] + p["b_x"])
+    r = torch.sigmoid(matmul(xi, p["w_a"]) + p["b_a"])
+    i = torch.sigmoid(matmul(xi, p["w_x"]) + p["b_x"])
     log_a = -_RGLRU_C * F.softplus(p["lam"]) * r        # a = exp(log_a)
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-12)) * (i * xi)
@@ -107,8 +107,8 @@ def apply_rglru(cfg, p, x, impl: str = "kernel", return_state: bool = False):
     ``return_state=True`` also returns the decode continuation state
     {"h": final hidden (B,D) fp32, "conv": conv history (B,W-1,D)}.
     """
-    gate = act_fn("gelu")(x @ p["w_gate_branch"])
-    main = x @ p["w_main"]
+    gate = act_fn("gelu")(matmul(x, p["w_gate_branch"]))
+    main = matmul(x, p["w_main"])
     xi, conv_state = _causal_depthwise_conv(main, p["conv_w"], p["conv_b"])
     a, bb = _rglru_gates(p, xi.float())
     if impl == "kernel":
@@ -120,30 +120,31 @@ def apply_rglru(cfg, p, x, impl: str = "kernel", return_state: bool = False):
     else:
         raise ValueError(f"impl must be 'kernel', 'xla_flash', 'naive' or "
                          f"'chunked', got {impl!r}")
-    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    y = matmul(h.to(x.dtype) * gate, p["w_out"])
     if return_state:
         # clones: views would keep the whole (B, S, D) h and conv input alive
         return y, {"h": h[:, -1].clone(), "conv": conv_state.clone()}
     return y
 
 
-def rglru_init_state(cfg, batch: int, device=None):
+def rglru_init_state(cfg, batch: int, device=None, dtype=torch.float32):
+    """{"h": fp32 (B, D), "conv": (B, W-1, D) of ``dtype``}."""
     d, w = cfg.d_model, cfg.rglru_conv_width
     return {
         "h": torch.zeros((batch, d), device=device),
-        "conv": torch.zeros((batch, w - 1, d), device=device),
+        "conv": torch.zeros((batch, w - 1, d), dtype=dtype, device=device),
     }
 
 
 def rglru_decode_step(cfg, p, x, state):
     """x: (B,1,D) one token."""
-    gate = act_fn("gelu")(x @ p["w_gate_branch"])
-    main = x @ p["w_main"]
+    gate = act_fn("gelu")(matmul(x, p["w_gate_branch"]))
+    main = matmul(x, p["w_main"])
     xi, new_conv = _causal_depthwise_conv(main, p["conv_w"], p["conv_b"],
                                           state["conv"])
     a, bb = _rglru_gates(p, xi[:, 0].float())
     h = a * state["h"] + bb
-    y = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    y = matmul(h[:, None].to(x.dtype) * gate, p["w_out"])
     return y, {"h": h, "conv": new_conv}
 
 
@@ -196,9 +197,9 @@ def mlstm_state_axes():
 def _mlstm_preact(cfg, p, x):
     d = x.shape[-1]
     hd = d // cfg.num_heads
-    qkv = torch.einsum("bsd,dthk->tbshk", x, p["w_qkv"]).float()
+    qkv = einsum("bsd,dthk->tbshk", x, p["w_qkv"]).float()
     q, k, v = qkv[0], qkv[1] / math.sqrt(hd), qkv[2]
-    if_ = (torch.einsum("bsd,dth->tbsh", x, p["w_if"]).float()
+    if_ = (einsum("bsd,dth->tbsh", x, p["w_if"]).float()
            + p["b_if"].float()[:, None, None])
     return q, k, v, if_[0], if_[1]
 
@@ -215,7 +216,7 @@ def apply_mlstm(cfg, p, x, state=None):
         h, st = _mlstm_cell(q[:, t], k[:, t], v[:, t], it[:, t], ft[:, t], st)
         hs.append(h)
     h = torch.stack(hs, 1).reshape(B, S, d).to(x.dtype)
-    return (h * F.silu(x @ p["w_gate"])) @ p["w_out"], st
+    return matmul(h * F.silu(matmul(x, p["w_gate"])), p["w_out"]), st
 
 
 def apply_mlstm_chunked(cfg, p, x, state=None, chunk: int = 128):
@@ -273,7 +274,7 @@ def apply_mlstm_chunked(cfg, p, x, state=None, chunk: int = 128):
                    + torch.einsum("bshk,bsh->bhk", kc, wv),
               "m": m_end}
     h = torch.cat(hs, 1).reshape(B, n_chunks * L, d)[:, :S].to(x.dtype)
-    return (h * F.silu(x @ p["w_gate"])) @ p["w_out"], st
+    return matmul(h * F.silu(matmul(x, p["w_gate"])), p["w_out"]), st
 
 
 def mlstm_decode_step(cfg, p, x, state):
@@ -332,15 +333,16 @@ def apply_slstm(cfg, p, x, state=None):
     """Full-sequence sLSTM block (cell, projection and its GELU FFN), a
     python loop over time.  x: (B,S,d) -> (y (B,S,d), final state)."""
     B, S, d = x.shape
-    wx = torch.einsum("bsd,dthj->bsthj", x, p["w_gates"]).float()
+    wx = einsum("bsd,dthj->bsthj", x, p["w_gates"]).float()
     st = state or slstm_init_state(cfg, B, x.device)
     hs = []
     for t in range(S):
         h, st = _slstm_cell(p, wx[:, t], st)
         hs.append(h)
     h = torch.stack(hs, 1).reshape(B, S, d).to(x.dtype)
-    y = h @ p["w_out"]
-    return y + act_fn("gelu")(y @ p["ffn_wi"]) @ p["ffn_wo"], st
+    y = matmul(h, p["w_out"])
+    return y + matmul(act_fn("gelu")(matmul(y, p["ffn_wi"])),
+                      p["ffn_wo"]), st
 
 
 def slstm_decode_step(cfg, p, x, state):

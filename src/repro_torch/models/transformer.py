@@ -14,9 +14,15 @@ losses), prefill and decode, in both of its layouts:
   layers with views ``[l]`` of the stacked tensors.  The decode state is
   ``{"k", "v": (L, B, W, K, hd), "slot_pos": (L, W), "pos": (L,)}``.
 
-The xLSTM blocks have ``ln1`` and a cell, no ``ln2`` and no MLP.  Not
-ported yet: the encoder-decoder stack raises ``NotImplementedError``
-(ROADMAP Queue 1 item 14).
+The xLSTM blocks have ``ln1`` and a cell, no ``ln2`` and no MLP.  The
+decode state's k, v and conv history take the state dtype (``dtype``:
+bf16 under bf16 activations, else fp32); the recurrent carries stay fp32.
+
+The encoder-decoder stack (Whisper) is two ``"layers"`` lists:
+``apply_encoder`` (bidirectional self attention, through
+``flash_attention`` under ``impl="kernel"``) and ``apply_decoder`` (causal
+self attention, then cross attention to the encoder's K/V), each layer
+optionally rematerialised; its decode lives in ``models/model.py``.
 """
 from __future__ import annotations
 
@@ -29,16 +35,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
-                                       norm_specs, stack_specs)
+                                       norm_specs, sinusoidal_positions,
+                                       stack_specs)
 from repro_torch.models.moe import apply_moe, moe_specs
-
-_ITEM = "ROADMAP Queue 1 item 14"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"({_ITEM})")
-
 
 _KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 
@@ -48,14 +47,8 @@ def _check_kind(kind: str):
         raise ValueError(kind)
 
 
-def _check_stack(cfg):
-    if cfg.encoder_decoder:
-        raise _not_ported("the encoder-decoder stack")
-
-
 def check_config(cfg):
-    """Raise ``NotImplementedError`` if ``cfg`` has a part not ported yet."""
-    _check_stack(cfg)
+    """Raise ``ValueError`` for a layer kind the stack does not know."""
     for kind in set(cfg.layer_kinds):
         _check_kind(kind)
 
@@ -74,6 +67,18 @@ def _unbind(tree, n: int) -> list:
         per = {k: _unbind(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per.items()} for i in range(n)]
     return list(torch.unbind(tree, 0))
+
+
+def _scan_carry(x_in, x_out):
+    """``x_out``, checked to keep ``x_in``'s dtype: the reference's
+    ``lax.scan`` over a ``"scanned"`` stack refuses a carry whose dtype
+    changes (fp32 weights on a bf16 residual stream), so the port refuses
+    it too."""
+    if x_out.dtype != x_in.dtype:
+        raise TypeError(f"the scanned stack's residual stream changes dtype "
+                        f"in a layer ({x_in.dtype} -> {x_out.dtype}); the "
+                        "reference's lax.scan refuses such a carry")
+    return x_out
 
 
 def _window(cfg, kind: str) -> int:
@@ -101,6 +106,27 @@ def block_specs(cfg, kind: str):
     else:
         s["mlp"] = mlp_specs(cfg)
     return s
+
+
+def enc_block_specs(cfg):
+    return {
+        "ln1": norm_specs(cfg),
+        "attn": attn.attention_specs(cfg),
+        "ln2": norm_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def dec_block_specs(cfg):
+    """Decoder block with cross attention (enc-dec archs)."""
+    return {
+        "ln1": norm_specs(cfg),
+        "attn": attn.attention_specs(cfg),
+        "ln_x": norm_specs(cfg),
+        "xattn": attn.cross_attention_specs(cfg),
+        "ln2": norm_specs(cfg),
+        "mlp": mlp_specs(cfg),
+    }
 
 
 def _ffn(cfg, p, x):
@@ -147,22 +173,27 @@ def apply_block(cfg, kind, p, x, *, impl="kernel"):
 # Per-layer decode (one token, stateful)
 # --------------------------------------------------------------------------
 
-def init_layer_state(cfg, kind, batch: int, max_len: int, device=None):
+def init_layer_state(cfg, kind, batch: int, max_len: int, device=None,
+                     dtype=torch.float32):
+    """An empty decode state of one layer; k, v and the conv history of
+    ``dtype``, the recurrent carries fp32."""
     _check_kind(kind)
     if kind in ("attn", "local_attn"):
         window = _window(cfg, kind)
         W = min(window, max_len) if window > 0 else max_len
-        return attn.init_kv_cache(cfg, batch, W, device=device)
+        return attn.init_kv_cache(cfg, batch, W, device=device, dtype=dtype)
     if kind == "mlstm":
         return rec.mlstm_init_state(cfg, batch, device=device)
     if kind == "slstm":
         return rec.slstm_init_state(cfg, batch, device=device)
-    return rec.rglru_init_state(cfg, batch, device=device)
+    return rec.rglru_init_state(cfg, batch, device=device, dtype=dtype)
 
 
-def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel"):
-    """Full-sequence block that also returns the decode state (prefill).
-    The MoE layer's aux loss is dropped, as the reference drops it."""
+def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel",
+                  dtype=torch.float32):
+    """Full-sequence block that also returns the decode state (prefill),
+    its k, v and conv history of ``dtype``.  The MoE layer's aux loss is
+    dropped, as the reference drops it."""
     _check_kind(kind)
     if kind in ("mlstm", "slstm"):
         h, st = _xlstm(cfg, kind, p, x, impl)
@@ -170,10 +201,12 @@ def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel"):
     if kind in ("attn", "local_attn"):
         h, st = attn.self_attention_prefill(
             cfg, p["attn"], apply_norm(cfg, p["ln1"], x), causal=True,
-            window=_window(cfg, kind), impl=impl, cache_len=cache_len)
+            window=_window(cfg, kind), impl=impl, cache_len=cache_len,
+            dtype=dtype)
     else:
         h, st = rec.apply_rglru(cfg, p["rnn"], apply_norm(cfg, p["ln1"], x),
                                 impl=impl, return_state=True)
+        st["conv"] = st["conv"].to(dtype)
     x = x + h
     return x + _ffn(cfg, p, apply_norm(cfg, p["ln2"], x))[0], st
 
@@ -192,7 +225,6 @@ def apply_stack(cfg, p, x, *, impl="kernel", remat=False):
     ``jax.checkpoint`` per layer: the backward recomputes the layer's
     activations instead of keeping them.  It changes memory, not the
     numbers; ``torch.func`` transforms do not take it."""
-    _check_stack(cfg)
     if cfg.homogeneous:
         layers = [("attn", lp) for lp in _unbind(p["scanned"],
                                                   cfg.num_layers)]
@@ -201,26 +233,31 @@ def apply_stack(cfg, p, x, *, impl="kernel", remat=False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in layers:
         fn = functools.partial(apply_block, cfg, kind, impl=impl)
-        x, a = (checkpoint(fn, lp, x, use_reentrant=False) if remat
-                else fn(lp, x))
+        x_in = x
+        x, a = _run(fn, remat, lp, x)
+        if cfg.homogeneous:
+            _scan_carry(x_in, x)
         aux = aux + a
     return x, aux
 
 
-def prefill_stack(cfg, p, x, *, cache_len, impl="kernel"):
-    """Full-sequence stack returning (x, decode_state) — the prefill path."""
-    _check_stack(cfg)
+def prefill_stack(cfg, p, x, *, cache_len, impl="kernel",
+                  dtype=torch.float32):
+    """Full-sequence stack returning (x, decode_state) — the prefill path;
+    the state's k, v and conv history of ``dtype``."""
     states = []
     if cfg.homogeneous:
         for i in range(cfg.num_layers):
-            x, st = prefill_block(cfg, "attn", _layer(p["scanned"], i), x,
-                                  cache_len=cache_len, impl=impl)
+            h, st = prefill_block(cfg, "attn", _layer(p["scanned"], i), x,
+                                  cache_len=cache_len, impl=impl,
+                                  dtype=dtype)
+            x = _scan_carry(x, h)
             states.append(st)
         return x, {"scanned": {k: torch.stack([st[k] for st in states])
                                for k in states[0]}}
     for kind, lp in zip(cfg.layer_kinds, p["layers"]):
         x, st = prefill_block(cfg, kind, lp, x, cache_len=cache_len,
-                              impl=impl)
+                              impl=impl, dtype=dtype)
         states.append(st)
     return x, {"layers": states}
 
@@ -251,21 +288,20 @@ def decode_block(cfg, kind, p, x, state, *, impl="kernel", in_place=False):
 # --------------------------------------------------------------------------
 
 def stack_specs_tree(cfg):
-    _check_stack(cfg)
     if cfg.homogeneous:
         return {"scanned": stack_specs(block_specs(cfg, "attn"),
                                        cfg.num_layers)}
     return {"layers": [block_specs(cfg, k) for k in cfg.layer_kinds]}
 
 
-def init_stack_state(cfg, batch: int, max_len: int, device=None):
-    _check_stack(cfg)
+def init_stack_state(cfg, batch: int, max_len: int, device=None,
+                     dtype=torch.float32):
     if cfg.homogeneous:
-        one = init_layer_state(cfg, "attn", batch, max_len, device)
+        one = init_layer_state(cfg, "attn", batch, max_len, device, dtype)
         return {"scanned": {k: torch.stack([v] * cfg.num_layers)
                             for k, v in one.items()}}
-    return {"layers": [init_layer_state(cfg, k, batch, max_len, device)
-                       for k in cfg.layer_kinds]}
+    return {"layers": [init_layer_state(cfg, k, batch, max_len, device,
+                                        dtype) for k in cfg.layer_kinds]}
 
 
 def decode_stack(cfg, p, x, state, *, impl="kernel"):
@@ -273,15 +309,15 @@ def decode_stack(cfg, p, x, state, *, impl="kernel"):
     state is left as it was.  The scanned layout copies its stacked k, v
     and slot_pos once per step and writes each layer's token into that
     copy (ROADMAP Queue 4: in place)."""
-    _check_stack(cfg)
     if cfg.homogeneous:
         old = state["scanned"]
         new = {k: old[k].clone() for k in ("k", "v", "slot_pos")}
         for i in range(cfg.num_layers):
             ls = {k: t[i] for k, t in new.items()}
             ls["pos"] = old["pos"][i]
-            x, _ = decode_block(cfg, "attn", _layer(p["scanned"], i), x, ls,
+            h, _ = decode_block(cfg, "attn", _layer(p["scanned"], i), x, ls,
                                 impl=impl, in_place=True)
+            x = _scan_carry(x, h)
         new["pos"] = old["pos"] + 1
         return x, {"scanned": new}
     new_states = []
@@ -289,3 +325,58 @@ def decode_stack(cfg, p, x, state, *, impl="kernel"):
         x, ns = decode_block(cfg, kind, lp, x, ls, impl=impl)
         new_states.append(ns)
     return x, {"layers": new_states}
+
+
+# --------------------------------------------------------------------------
+# Encoder-decoder (whisper-style)
+# --------------------------------------------------------------------------
+
+def encdec_specs_tree(cfg):
+    return {
+        "encoder": [enc_block_specs(cfg)
+                    for _ in range(cfg.num_encoder_layers)],
+        "enc_norm": norm_specs(cfg),
+        "decoder": [dec_block_specs(cfg) for _ in range(cfg.num_layers)],
+    }
+
+
+def _enc_block(cfg, impl, lp, h):
+    h = h + attn.self_attention(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], h),
+                                causal=False, impl=impl)
+    return h + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], h))
+
+
+def _dec_block(cfg, impl, lp, h, enc_out):
+    h = h + attn.self_attention(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], h),
+                                causal=True, impl=impl)
+    kx, vx = attn.encode_kv(cfg, lp["xattn"], enc_out)
+    h = h + attn.cross_attention(cfg, lp["xattn"],
+                                 apply_norm(cfg, lp["ln_x"], h), kx, vx,
+                                 impl=impl)
+    return h + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], h))
+
+
+def _run(fn, remat, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def apply_encoder(cfg, p, frames, *, impl="kernel", remat=True):
+    """The encoder over frame embeddings (B, S, D) plus sinusoidal
+    positions: bidirectional self attention and an MLP a layer, then the
+    encoder's final norm."""
+    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      frames.device).to(frames.dtype)
+    for lp in p["encoder"]:
+        x = _run(functools.partial(_enc_block, cfg, impl), remat, lp, x)
+    return apply_norm(cfg, p["enc_norm"], x)
+
+
+def apply_decoder(cfg, p, x, enc_out, *, impl="kernel", remat=True):
+    """The decoder over token embeddings (B, St, D) with positions added:
+    causal self attention, cross attention to ``enc_out`` (each layer's
+    K/V projected from it) and an MLP a layer."""
+    for lp in p["decoder"]:
+        x = _run(functools.partial(_dec_block, cfg, impl), remat, lp, x,
+                 enc_out)
+    return x

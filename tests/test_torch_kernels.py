@@ -318,6 +318,13 @@ ATTN_CASES = {
     # smoke's windowed prefill past its 64-token window
     "qwen2_moe": (2, 4096, 4096, 16, 16, 128, True, 0, torch.float32, None),
     "mixtral_smoke": (2, 160, 160, 8, 2, 32, True, 64, torch.float32, None),
+    # Whisper-base's encoder (bidirectional, 1,500 frames, MHA 8 over 8)
+    # and InternVL2-26B's bf16 prefill cut from 48 over 8 heads to 12 over
+    # 2 (its group of 6 query heads a KV head kept)
+    "whisper_encoder": (8, 1500, 1500, 8, 8, 64, False, 0, torch.float32,
+                        None),
+    "internvl2_bf16_cut": (2, 4096, 4096, 12, 2, 128, True, 0,
+                           torch.bfloat16, None),
 }
 
 
@@ -505,6 +512,11 @@ DECODE_CASES = {
     # 8,192 slots) and Mixtral smoke's wrapped 64-slot ring
     "qwen2_moe": (2, 8192, 16, 16, 128, 4096, 0, "prefix"),
     "mixtral_smoke": (2, 64, 8, 2, 32, 170, 64, "ring"),
+    # Whisper-base's decoder ring (187 slots at 1,500 frames, the 32nd
+    # token) and InternVL2-26B's first decode step cut from 48 over 8
+    # heads to 12 over 2 (4,097 of 8,192 slots); both dtypes run
+    "whisper_decoder": (8, 187, 8, 8, 64, 31, 0, "prefix"),
+    "internvl2_cut": (2, 8192, 12, 2, 128, 4096, 0, "prefix"),
 }
 
 
