@@ -180,15 +180,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    single-device run on the card by phase 9's rule (the stacked loop of
    ``clients.gd_local_steps`` and ``stacked_weighted_average`` for (e));
    the references not run by phases 5, 11 and 13 and the spread runs run
-   in this process while the ranks run (a spread from two init moves for
-   async, from one for the others).  After (e) the ranks also run
-   phase 15's part (d).
+   in this process while the ranks run (a spread from one init move
+   each).  After (e) the ranks also run
+   phase 15's part (d).  Each rank's start-up is printed, split into the
+   interpreter's start, the import of this script, the CUDA context, the
+   gloo rendezvous and the mesh's groups.
 15. The transformer's training half, with no kernel launch: (a)
    ``repro_torch.launch.train``'s CLI at its defaults on the card,
    full-width StableLM-1.6B (1,644,267,520 fp32 parameters), AdamW, B=8,
    S=128, 10 steps through ``impl="xla_flash"`` (finite, falling
    losses; ms a step, tokens/s, 6*N*tokens/step time against 67 TFLOP/s
-   fp32, peak memory; one warm step profiled); (b) 2 layers of it at full
+   fp32, peak memory; one warm step profiled; the params and AdamW state
+   kept for phase 18); (b) 2 layers of it at full
    width (d_model 2,048, vocab 100,352), B=1, S=64, card against CPU from
    the same init: the loss, every gradient leaf and the params after one
    AdamW step within SENSITIVITY_FACTOR times the card's spread under a
@@ -250,7 +253,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (fp32) and InternVL2's (bf16, their own lines and tolerances) against
    their plain versions and timed beside SDPA and their bounds (bf16: at
    the bf16 tensor-core rate and at the fp32 rate).
-18. Kernel records as JSON (``launches``: each path's count, read around
+18. The roofline bridge (``repro_torch.roofline``), run right after
+   phase 15 on its StableLM-1.6B before the weights are freed: (a) one
+   more warm train step (B=8, S=128, fp32, AdamW) under the cost walk
+   (``CostWalk``), no kernel launched; its FLOPs equal the 2-layer cut's
+   count plus 22 times the difference of the 2- and 1-layer cuts' counts
+   at the same batch, exactly, and phase 15 (b)'s cut counts the same
+   FLOPs on the card as on the CPU; ``roofline_report`` at fp32, and phase
+   15's warm step, which must not beat ``compute_s``, against
+   ``compute_s`` and ``step_time_lower_bound_s``; (b) with the same
+   weights one prefill (B=2, 4,096 tokens) and one decode step through
+   ``impl="kernel"`` under the walk: 24 ``flash_attention`` and 24
+   ``decode_attention`` launches, each with its cost recorded (the walk
+   raises on a launch without one), both reports at fp32; (c)
+   ``plan_from_roofline`` on (a)'s terms for 2 edges of 4 GPUs at the
+   fp32 parameters' bytes on the H100's links: ``t_step`` =
+   max(compute_s, memory_s) and T = eq. 34 on the returned association.
+19. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
    and, in phases 9 and 14, over the ranks), then the result line.
 
@@ -270,6 +289,8 @@ import threading
 import contextlib
 import time
 from unittest import mock
+
+T_IMPORT = time.time()          # phase 14 times its ranks' start-up
 
 import numpy as np
 import torch
@@ -292,16 +313,17 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
 from repro_torch.kernels import rglru_scan as rs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.mesh import make_agg_mesh, run_ranks  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, IB_BW, NVLINK_BW,  # noqa: E402
+                                     PEAK_FLOPS_BF16, PEAK_FLOPS_FP32,
+                                     make_agg_mesh, run_ranks)
 from repro_torch.models.lenet import lenet_init, lenet_loss  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.roofline import (CostWalk, record_from_trace,  # noqa: E402
+                                  roofline_report)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 (non-tensor-core)
-# rate, for the bound of each kernel.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core rate, the same sheet
+T_IMPORTED = time.time()
+
 
 MAIN = dict(num_edges=5, num_ues=100, epsilon=0.25, seed=0)
 ROUNDS = 2
@@ -429,9 +451,9 @@ MESH_TIMEOUT_S = 600
 MESH_CKPT_AT = 2                     # the service's checkpoint, of 4 events
 MESH_STREAM_CHUNK = 32
 MESH_STREAM_SEED = 5
-ASYNC_SPREAD_SEEDS = SPREAD_SEEDS[:2]  # phase 14: two moves for async (its
-MESH_SPREAD_SEEDS = SPREAD_SEEDS[:1]   # train-loss ratio was 1.20), one for
-                                       # the other references
+MESH_SPREAD_SEEDS = SPREAD_SEEDS[:1]   # phase 14: one move a reference
+                                       # (the largest ratio, async's train
+                                       # loss, 1.20 with two)
 FL_MESH = (2, 2)
 # Phase 15: the transformer's training half.  (a) the training CLI at its
 # defaults (full-width StableLM-1.6B, B=8, S=128, AdamW at 3e-4); (b) a
@@ -461,6 +483,14 @@ XLSTM_PROMPT = 1024
 XLSTM_CHUNKED_PROMPT = 512        # chunked against scan: 4 chunks of 128
 TRAIN_LR = 3e-4
 TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 1, 64
+# Phase 18: the roofline bridge on phase 15's StableLM-1.6B.  Its train
+# step's FLOPs extrapolated from cuts of these layers at the same batch;
+# one prefill of ROOF_PROMPT tokens at B=ROOF_BATCH and one decode step
+# through the kernels; the plan on an ROOF_EDGES x ROOF_UES cluster
+# priced at the fp32 parameters' bytes.
+ROOF_CUTS = (1, 2)
+ROOF_BATCH, ROOF_PROMPT = 2, 4096
+ROOF_EDGES, ROOF_UES = 2, 4
 HFL_ARGV = ["--mode", "hfl", "--edges", "2", "--ues", "2", "--smoke",
             "--rounds", "2"]
 # Phase 17: the encoder-decoder stack, the vision frontend and bf16.
@@ -842,24 +872,24 @@ def time_kernels(x, w, g, m,
     flush = torch.empty(256 * 2**20 // 4, device=x.device)   # > 50 MB L2
     n, f = x.shape
     ops = {"segment_aggregate": (ha.segment_aggregate, ha.segment_aggregate_plain,
-                                 (w, g, m), 2),
+                                 ha.segment_aggregate_cost, (w, g, m)),
            "cloud_aggregate": (ha.cloud_aggregate, ha.cloud_aggregate_plain,
-                               (w,), 1)}
+                               ha.cloud_aggregate_cost, (w,))}
     out = {}
     for name in names:
-        kernel, plain, args, side_inputs = ops[name]
-        p = averaging_operator(w, g if side_inputs == 2 else None, m)
+        kernel, plain, cost, args = ops[name]
+        p = averaging_operator(w, g if len(args) == 3 else None, m)
         ref = plain(x, *args)
         check(_max_err(torch.mm(p, x), ref)
               <= KERNEL_RTOL * float(ref.abs().max()),
               "torch.mm with the averaging operator computes the event")
-        nbytes = n * f * x.element_size() + n * f * 4 + side_inputs * n * 4
+        flops, nbytes = cost(x, *args)
         launched = kernels_per_call(lambda: kernel(x, *args), flush)
         out[name] = dict(
             ms=time_ms(lambda: kernel(x, *args), flush),
             plain_ms=time_ms(lambda: plain(x, *args), flush),
             library_ms=time_ms(lambda: torch.mm(p, x), flush),
-            **bound(nbytes, 2 * n * f))
+            **bound(nbytes, flops))
         r = out[name]
         print(f"  {name:17s} N={n} F={f} M={m}: kernel "
               f"{r['ms'] * 1e3:8.2f} us   plain {r['plain_ms'] * 1e3:8.2f} us"
@@ -959,15 +989,14 @@ def time_segment_sum(x, w, g, m) -> dict:
     check(_max_err(torch.mm(onehot, x), ref)
           <= KERNEL_RTOL * float(ref.abs().max()),
           "torch.mm with the weighted one-hot computes segment_sum")
-    nbytes = (n * f * x.element_size() + 2 * n * 4   # chunk, w, group ids
-              + 2 * m * f * 4)                       # accumulator in and out
+    flops, nbytes = ha.segment_sum_cost(x, w, g, m)
     launched = kernels_per_call(lambda: ha.segment_sum(x, w, g, m, out=acc),
                                 flush)
     r = dict(ms=time_ms(lambda: ha.segment_sum(x, w, g, m, out=acc), flush),
              plain_ms=time_ms(lambda: ha.segment_sum_plain(x, w, g, m),
                               flush),
              library_ms=time_ms(lambda: torch.mm(onehot, x), flush),
-             **bound(nbytes, 2 * n * f))
+             **bound(nbytes, flops))
     print(f"  {'segment_sum':17s} N={n} F={f} M={m}: kernel "
           f"{r['ms'] * 1e3:8.2f} us   plain {r['plain_ms'] * 1e3:8.2f} us"
           f"   torch.mm {r['library_ms'] * 1e3:8.2f} us   bound "
@@ -1137,10 +1166,11 @@ def time_mean(x, w, note: str = "") -> dict:
         ref = ha.weighted_mean_plain(x, w)
         check(_max_err(library(), ref) <= KERNEL_RTOL * float(
             ref.abs().max()), "torch.mv computes the weighted mean")
+    flops, nbytes = ha.weighted_mean_cost(x, w)
     r = dict(ms=time_ms(lambda: ha.weighted_mean(x, w), flush),
              plain_ms=time_ms(lambda: ha.weighted_mean_plain(x, w), flush),
              library_ms=time_ms(library, flush) if fp32 else None,
-             **bound(n * f * x.element_size() + n * 4 + f * 4, 2 * n * f))
+             **bound(nbytes, flops))
     lib = (f"torch.mv {r['library_ms'] * 1e3:9.2f} us" if fp32 else
            "torch.mv (fp32 only)")
     print(f"  {'weighted_mean':17s} N={n} F={f} {str(x.dtype)[6:]}: kernel "
@@ -1297,8 +1327,11 @@ def check_scan_against_plain() -> float:
 
 
 def bound(nbytes: float, flops: float,
-          flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+          flops_per_s: float = PEAK_FLOPS_FP32) -> dict:
+    """The least time of a kernel's work: its bytes (from its wrapper's
+    cost function, ``*_cost``) at the HBM rate or its FLOPs at
+    ``flops_per_s``, whichever is longer."""
+    bytes_ms = nbytes / HBM_BW * 1e3
     ops_ms = flops / flops_per_s * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -1357,7 +1390,7 @@ def bf16_bounds(r: dict, nbytes: float, flops: float) -> str:
     """Set ``r``'s bound at the bf16 tensor-core rate (the least time of
     the work on the card) and name the bound at the fp32 rate, which the
     kernel's arithmetic runs at."""
-    r.update(bound(nbytes, flops, BF16_FLOPS_PER_S))
+    r.update(bound(nbytes, flops, PEAK_FLOPS_BF16))
     fp32 = bound(nbytes, flops)
     return (f"; at the fp32 rate the kernel computes at, bound "
             f"{fp32['bound_ms']:.4g} ms ({fp32['bound_by']}), kernel/bound "
@@ -1385,15 +1418,16 @@ def time_attention(case, dtype=torch.float32) -> dict:
     lib = {name: time_ms(call, flush, iters, 2)
            for name, call in calls.items()}
     fastest = min(lib, key=lib.get)
-    pairs = int(fa.attention_mask(S, S, causal, window, "cuda").sum()) * B * H
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    flops, nbytes = fa.flash_attention_cost(q, k, v, causal=causal,
+                                            window=window)
+    pairs = flops // (4 * hd)
     r = dict(ms=time_ms(lambda: fa.flash_attention(
                  q, k, v, causal=causal, window=window), flush, iters, 2),
              plain_ms=time_ms(lambda: fa.flash_attention_plain(
                  q, k, v, causal=causal, window=window), flush, iters // 2,
                  1),
-             library_ms=lib[fastest], **bound(nbytes, 4 * hd * pairs))
-    extra = (bf16_bounds(r, nbytes, 4 * hd * pairs)
+             library_ms=lib[fastest], **bound(nbytes, flops))
+    extra = (bf16_bounds(r, nbytes, flops)
              if dtype == torch.bfloat16 else "")
     print(f"  {'flash_attention':17s} {'-'.join(map(str, case))}"
           f"{'-bf16' if extra else ''}: "
@@ -1442,9 +1476,10 @@ def time_scan() -> dict:
     for c in (1, chosen, 2 * chosen):
         with mock.patch.object(rs, "scan_chunks", lambda *_, c=c: c):
             chunked.append((c, time_ms(lambda: rs.rglru_scan(a, b), flush)))
+    flops, nbytes = rs.rglru_scan_cost(a, b)
     r = dict(ms=chunked[1][1],
              plain_ms=time_ms(lambda: rs.rglru_scan_plain(a, b), flush, 20),
-             library_ms=None, **bound(3 * 4 * a.numel(), 2 * a.numel()))
+             library_ms=None, **bound(nbytes, flops))
     print(f"  {'rglru_scan':17s} {'-'.join(map(str, SCAN_SERVING))}: "
           f"kernel {r['ms'] * 1e3:.2f} us   plain {r['plain_ms'] * 1e3:.2f} "
           f"us   bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); "
@@ -1595,9 +1630,7 @@ def time_decode(case, dtype=torch.float32) -> dict:
     lib = {name: time_ms(call, flush) for name, call in calls.items()}
     fastest = min(lib, key=lib.get)
     n_valid = int(mask.sum())
-    nbytes = (q.element_size() * (2 * B * K * hd * n_valid + 2 * q.numel())
-              + 4 * (W + 1))
-    flops = 4 * B * H * hd * n_valid
+    flops, nbytes = da.decode_attention_cost(q, k, v, sp, pos, window=window)
     r = dict(ms=time_ms(lambda: da.decode_attention(
                  q, k, v, sp, pos, window=window), flush),
              plain_ms=time_ms(lambda: da.decode_attention_plain(
@@ -3492,9 +3525,11 @@ def stream_slab(sim) -> dict:
     return out
 
 
-def mesh_rank(sch, ue_data, test, ckpt_dir) -> dict:
+def mesh_rank(sch, ue_data, test, ckpt_dir, spawned: float) -> dict:
     """One rank of phase 14, run by ``run_ranks`` (``spawn`` imports this
-    script in each rank; ``main`` does not run there)."""
+    script in each rank; ``main`` does not run there).  ``spawned``: the
+    parent's clock (``time.time()``) just before the spawn; the rank's
+    start-up stamps come back in ``out["startup"]``."""
     import datetime
 
     import torch.distributed as dist
@@ -3503,8 +3538,10 @@ def mesh_rank(sch, ue_data, test, ckpt_dir) -> dict:
     from repro_torch.core import scenario
     from repro_torch.fl import spmd
     from repro_torch.fl.sampling import make_sampler
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import service as S
     from repro_torch.launch.mesh import make_fl_mesh
+    entered = time.time()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True       # as phase_mesh
@@ -3512,6 +3549,14 @@ def mesh_rank(sch, ue_data, test, ckpt_dir) -> dict:
     timeout = datetime.timedelta(seconds=MESH_TIMEOUT_S)
     mesh = make_agg_mesh(1, MESH_RANKS, timeout=timeout)
     out = dict(rank=mesh.rank, device=str(mesh.device))
+    t = mesh_lib.rank_times
+    stamps = [("interpreter and spawn", spawned, T_IMPORT),
+              ("import of chip_smoke.py", T_IMPORT, T_IMPORTED),
+              ("arguments unpickled", T_IMPORTED, t["entered"]),
+              ("CUDA context", t["entered"], t["device"]),
+              ("gloo rendezvous", t["device"], t["group"]),
+              ("rank's own imports", t["group"], entered),
+              ("mesh's groups", entered, time.time())]
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -3522,9 +3567,12 @@ def mesh_rank(sch, ue_data, test, ckpt_dir) -> dict:
         return got, time.perf_counter() - t0, counts()
 
     # (a) phase 5's async run on the mesh
+    t0 = time.time()
     sim = make_sim(sch, ue_data, mesh.device, mesh=mesh, mode="async",
                    max_staleness=ASYNC_STALENESS)
+    stamps.append(("(a)'s simulator built", t0, time.time()))
     res, wall, launched = counted(lambda: sim.run(test, rounds=ROUNDS))
+    out["startup"] = [(what, b - a) for what, a, b in stamps]
     tl = res.timeline
     out["async"] = dict(run_summary(res), trace=tl.trace, times=res.times,
                         wall=wall, launches=launched,
@@ -3628,18 +3676,22 @@ def mesh_references(sch, ue_data, test, refs) -> dict:
     from repro_torch.fl.sampling import make_sampler
     from repro_torch.launch import service as S
     t0 = time.perf_counter()
-    out = {}
+    out, walls = {}, {}
 
     def async_run(**kw):
         return run_summary(make_sim(
             sch, ue_data, "cuda", mode="async",
             max_staleness=ASYNC_STALENESS, **kw).run(test, rounds=ROUNDS))
 
+    def lap(name):
+        walls[name] = time.perf_counter() - t0 - sum(walls.values())
+
     base = async_run()
     out["async"] = (base, _spread(
         base, [async_run(noise=SENSITIVITY_NOISE, noise_seed=seed)
-               for seed in ASYNC_SPREAD_SEEDS],
+               for seed in MESH_SPREAD_SEEDS],
         ("final", "test_loss", "train_loss")))
+    lap("async")
     for name, kw in (
             ("faulty", dict(delay_model=scenario(FAULT_SCENARIO).model,
                             fault_model=fault_model(),
@@ -3651,6 +3703,7 @@ def mesh_references(sch, ue_data, test, refs) -> dict:
             sch, ue_data, "cuda", noise=SENSITIVITY_NOISE, noise_seed=seed,
             **kw).run(test, rounds=FAULT_ROUNDS))
             for seed in MESH_SPREAD_SEEDS], ("final",))["final"]
+        lap(name)
     moved = []
     for seed in MESH_SPREAD_SEEDS:
         svc = S.HFLService(
@@ -3663,18 +3716,21 @@ def mesh_references(sch, ue_data, test, refs) -> dict:
         svc.run(SERVICE_STREAM_EVENTS)
         moved.append(float(np.abs(svc.g - refs["service"]["g"]).max()))
     out["service"] = max(moved)
+    lap("service")
     base = spmd_loop(sch, ue_data)
     out["spmd"] = (base, max(
         max(_max_err(a, b) for a, b in zip(
             spmd_loop(sch, ue_data, SENSITIVITY_NOISE, seed), base))
         for seed in MESH_SPREAD_SEEDS))
+    lap("spmd")
     base = hfl_loop()
     out["hfl"] = (base, max(
         max(_max_err(a, b) for moved, ref in zip(
             hfl_loop(SENSITIVITY_NOISE, seed), base)
             for a, b in zip(moved, ref))
         for seed in MESH_SPREAD_SEEDS))
-    out["wall"] = time.perf_counter() - t0
+    lap("hfl")
+    out["wall"], out["walls"] = time.perf_counter() - t0, walls
     return out
 
 
@@ -3723,7 +3779,7 @@ def _phase_mesh(sch, ue_data, test, refs) -> dict:
             try:
                 state["ranks"] = run_ranks(
                     mesh_rank, MESH_RANKS, sch, ue_data, test, tmp,
-                    device="cuda", timeout_s=MESH_TIMEOUT_S)
+                    time.time(), device="cuda", timeout_s=MESH_TIMEOUT_S)
             except BaseException as e:   # re-raised on the main thread
                 state["error"] = e
             state["wall"] = time.perf_counter() - t0
@@ -3740,7 +3796,12 @@ def _phase_mesh(sch, ue_data, test, refs) -> dict:
           f"{MESH_RANKS} x 1 mesh, then a {FL_MESH[0]} x {FL_MESH[1]} "
           f"('edge', 'ue') mesh: {state['wall']:.1f} s from spawn to "
           f"results; the single-device references and spreads beside them "
-          f"{ref['wall']:.1f} s")
+          f"{ref['wall']:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in ref["walls"].items()) + ")")
+    for r in ranks:
+        print(f"  rank {r['rank']} start-up, s: " + "; ".join(
+            f"{what} {sec:.2f}" for what, sec in r["startup"])
+            + f"; (a)'s run {r['async']['wall']:.2f}")
     n_test = len(test["labels"])
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -3893,7 +3954,8 @@ def phase_train() -> dict:
     """Part (a): ``launch.train``'s CLI at its defaults on the card:
     full-width StableLM-1.6B, AdamW, B=8, S=128, TRAIN_STEPS steps through
     ``impl="xla_flash"``, with no kernel launch; then one warm step
-    profiled.  Frees the params before it returns."""
+    profiled.  Returns the trained params and optimizer state with the
+    step, its batch and its warm time, for phase 18."""
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train
     from repro_torch.optim import adamw
@@ -3910,13 +3972,13 @@ def phase_train() -> dict:
     losses, step_s = res["losses"], res["step_s"]
     warm = float(np.median(step_s[1:]))
     tokens = args.batch * args.seq
-    share = 6 * CLI_PARAMS * tokens / warm / FP32_FLOPS_PER_S
+    share = 6 * CLI_PARAMS * tokens / warm / PEAK_FLOPS_FP32
     print(f"train CLI {TRAIN_ARGV}: {wall:.2f} s with init; losses "
           f"{[round(x, 4) for x in losses]}; first step "
           f"{step_s[0] * 1e3:.1f} ms, warm steps median {warm * 1e3:.1f} ms "
           f"(min {min(step_s[1:]) * 1e3:.1f}, max "
           f"{max(step_s[1:]) * 1e3:.1f}); {tokens / warm:.0f} tokens/s; "
-          f"6*N*tokens/step time = {share:.1%} of {FP32_FLOPS_PER_S:.3g} "
+          f"6*N*tokens/step time = {share:.1%} of {PEAK_FLOPS_FP32:.3g} "
           f"FLOP/s fp32; peak memory {peak} B; launches {launches}")
     check(launches == expect(), f"training launched kernels: {launches}")
     check(len(losses) == args.steps and bool(np.isfinite(losses).all()),
@@ -3945,9 +4007,8 @@ def phase_train() -> dict:
         print_top(kernels, 10)
     else:
         print("profiled warm step: the profiler recorded no device time")
-    del params, state
-    torch.cuda.empty_cache()
-    return dict(warm_s=warm, peak=peak, share=share)
+    return dict(warm_s=warm, args=args, step=step, params=params,
+                state=state, batch=batch)
 
 
 def train_cut_step(model, params, batch) -> dict:
@@ -3963,14 +4024,16 @@ def train_cut_step(model, params, batch) -> dict:
                 params=[t.cpu() for t in stepped])
 
 
-def phase_train_card_vs_cpu() -> None:
+def phase_train_card_vs_cpu() -> dict:
     """Part (b): TRAIN_CUT_LAYERS layers of StableLM-1.6B at full width,
     B=TRAIN_CUT_BATCH, S=TRAIN_CUT_SEQ, from the same init on the card and
     the CPU: the loss, every gradient leaf and the params after one AdamW
     step, each held to SENSITIVITY_FACTOR times the card's own spread
     under a SENSITIVITY_NOISE move of the embedding (cuDNN's deterministic
     algorithms).  The loss is one float32 number: its spread counts at
-    least one float32 step at its value, the least the move can show."""
+    least one float32 step at its value, the least the move can show.
+    Returns the FLOPs of the cut's step on the card and on the CPU (cost
+    walks of the unmoved runs), for phase 18."""
     cfg = dataclasses.replace(get_config(CLI_ARCH),
                               num_layers=TRAIN_CUT_LAYERS)
     card = Model(cfg, impl="xla_flash")
@@ -3980,7 +4043,7 @@ def phase_train_card_vs_cpu() -> None:
     reset_counts()
     torch.backends.cudnn.deterministic = True
     try:
-        got = train_cut_step(card, params, batch)
+        got, card_cost = walk(train_cut_step, card, params, batch)
         moved = train_cut_step(card, perturbed(params), batch)
     finally:
         torch.backends.cudnn.deterministic = False
@@ -3989,7 +4052,8 @@ def phase_train_card_vs_cpu() -> None:
     del params
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
-    cpu = train_cut_step(Model(cfg, impl="xla_flash", device="cpu"),
+    cpu, cpu_cost = walk(train_cut_step, Model(cfg, impl="xla_flash",
+                                               device="cpu"),
                          cpu_params, batch)
     print(f"  training cut, {TRAIN_CUT_LAYERS} layers at full width "
           f"({sum(t.numel() for t in cpu['params'])} parameters), "
@@ -4009,6 +4073,7 @@ def phase_train_card_vs_cpu() -> None:
         hold_to_spread("card vs CPU", f"training {what} (one AdamW step)"
                        if what == "params" else "training gradients",
                        got[what], cpu[what], got[what], moved[what])
+    return dict(card=card_cost["flops"], cpu=cpu_cost["flops"])
 
 
 def phase_refuse_autograd() -> None:
@@ -4048,6 +4113,140 @@ def phase_refuse_autograd() -> None:
               f"{name} under no_grad: launches {counts()}")
         print(f"  {name}: raised under autograd ({raised[:60]}...); "
               f"launched once under torch.no_grad()")
+
+
+def walk(fn, *args):
+    """``fn(*args)`` under a cost walk (``roofline.CostWalk``), the card
+    synchronised inside it: (its result, the walk's dict)."""
+    with CostWalk() as w:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    return out, w.result()
+
+
+def print_report(label: str, rep: dict) -> None:
+    print(f"  roofline {label} (fp32 peak {PEAK_FLOPS_FP32:g} FLOP/s, HBM "
+          f"{HBM_BW:g} B/s, NVLink {NVLINK_BW:g} B/s each way): "
+          + ", ".join(f"{k} {v!r}" for k, v in rep.items()))
+
+
+def phase_roofline(trained: dict, cut: dict) -> dict:
+    """Phase 18 on phase 15's StableLM-1.6B (``trained``, its params and
+    AdamW state still on the card) and phase 15 (b)'s cut FLOPs
+    (``cut``); frees the params at its end.  Returns the kernel launches
+    of its serving walks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import delay
+    from repro_torch.core.schedule import plan_from_roofline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    args = trained["args"]
+    cfg = get_config(args.arch)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in trained["batch"].items()}
+
+    # (a) one warm step of the full-width train step, walked
+    reset_counts()
+    t0 = time.perf_counter()
+    _, full = walk(trained["step"], trained["params"], trained["state"],
+                   batch)
+    walk_s = time.perf_counter() - t0
+    check(counts() == expect() and not full["kernels"],
+          f"the train step launched {counts()}")
+    flops = {}
+    for layers in ROOF_CUTS:
+        model = Model(dataclasses.replace(cfg, num_layers=layers),
+                      impl="xla_flash")
+        params = model.init(0)
+        opt = adamw(args.lr)
+        flops[layers] = walk(steps_lib.make_train_step(model, opt), params,
+                             opt.init(params), batch)[1]["flops"]
+        del model, params, opt
+    c1, c2 = flops[ROOF_CUTS[0]], flops[ROOF_CUTS[1]]
+    extrapolated = c2 + (cfg.num_layers - 2) * (c2 - c1)
+    print(f"  train step B={args.batch} S={args.seq} fp32 AdamW, walked on "
+          f"the card in {walk_s:.2f} s: {full['flops']!r} FLOPs, "
+          f"{full['bytes']!r} B; cuts {flops} -> count(2) + "
+          f"{cfg.num_layers - 2} x (count(2) - count(1)) = {extrapolated!r}"
+          f"; phase 15 (b)'s {TRAIN_CUT_LAYERS}-layer cut: card "
+          f"{cut['card']!r}, CPU {cut['cpu']!r} FLOPs")
+    check(cut["card"] == cut["cpu"], "the cut's FLOPs differ between the "
+          f"card and the CPU: {cut}")
+    check(full["flops"] == extrapolated, f"full-width FLOPs {full['flops']}"
+          f" != the layer extrapolation {extrapolated}")
+    shape = ShapeConfig("train_cli", args.seq, args.batch, "train")
+    rep = roofline_report(cfg, shape, record_from_trace(full),
+                          dtype=torch.float32)
+    print_report("train step", rep)
+    warm = trained["warm_s"]
+    print(f"  phase 15's warm step {warm * 1e3:.1f} ms = "
+          f"{warm / rep['compute_s']:.3f} x compute_s, "
+          f"{warm / rep['step_time_lower_bound_s']:.3f} x "
+          "step_time_lower_bound_s")
+    check(warm >= rep["compute_s"], f"the warm step {warm} s beats its "
+          f"FLOPs at the fp32 peak ({rep['compute_s']} s): TF32 on, or the "
+          "count wrong")
+
+    # (b) one prefill and one decode step through the kernels, walked
+    model = Model(cfg, impl="kernel")
+    params = trained["params"]
+    tokens = TokenStream(cfg.vocab_size, seed=0).batch(
+        ROOF_BATCH, ROOF_PROMPT)["tokens"]
+    launches = dict.fromkeys(KERNELS, 0)
+    with torch.no_grad():
+        reset_counts()
+        (logits, state), pre = walk(model.prefill, params,
+                                    {"tokens": torch.as_tensor(
+                                        tokens, device="cuda")})
+        pre_n = counts()
+        reset_counts()
+        (nxt, state), dec = walk(steps_lib.make_serve_step(model), params,
+                                 state, logits.argmax(-1).to(torch.int32))
+        dec_n = counts()
+    check(bool(torch.isfinite(logits).all()) and tuple(nxt.shape) ==
+          (ROOF_BATCH, 1), "prefill logits finite, one token a row")
+    for label, walked, got, name in (("prefill", pre, pre_n,
+                                      "flash_attention"),
+                                     ("decode step", dec, dec_n,
+                                      "decode_attention")):
+        n = cfg.num_layers
+        check(got == expect(**{name: n}), f"{label} launched {got}")
+        check(set(walked["kernels"]) == {name}
+              and walked["kernels"][name]["launches"] == got[name],
+              f"{label}: costs recorded {walked['kernels']}, launches {got}")
+        launches[name] += got[name]
+        k = walked["kernels"][name]
+        kind = "prefill" if name == "flash_attention" else "decode"
+        rep_s = roofline_report(
+            cfg, ShapeConfig(kind, ROOF_PROMPT, ROOF_BATCH, kind),
+            record_from_trace(walked), dtype=torch.float32)
+        print(f"  {label} B={ROOF_BATCH} S={ROOF_PROMPT} impl=kernel: "
+              f"{walked['flops']!r} FLOPs, {walked['bytes']!r} B; {name} "
+              f"{k['launches']} launches (launch_counts {got[name]}), "
+              f"{k['flops'] / k['launches']!r} FLOPs and "
+              f"{k['bytes'] / k['launches']!r} B each; dominant "
+              f"{rep_s['dominant']}")
+        print_report(label, rep_s)
+    del model, params, state, logits, nxt
+    trained.clear()
+    torch.cuda.empty_cache()
+
+    # (c) the plan on (a)'s terms
+    sch = plan_from_roofline(rep, num_edges=ROOF_EDGES,
+                             ues_per_edge=ROOF_UES,
+                             model_bytes=4 * CLI_PARAMS)
+    T = delay.cloud_round_time(sch.problem, sch.assoc, sch.a, sch.b)
+    print(f"  plan_from_roofline(E={ROOF_EDGES}, U={ROOF_UES}, model_bytes="
+          f"{4 * CLI_PARAMS}, NVLink {NVLINK_BW:g}, InfiniBand {IB_BW:g} "
+          f"B/s): a*={sch.a} b*={sch.b} R={sch.rounds} "
+          f"T={sch.cloud_round_time!r} s; problem meta {sch.problem.meta}; "
+          f"meta {sch.meta}")
+    check(sch.problem.meta["t_step"] == max(rep["compute_s"],
+                                            rep["memory_s"]),
+          "t_step is not max(compute_s, memory_s)")
+    check(T == sch.cloud_round_time, f"T {sch.cloud_round_time} != eq. 34 "
+          f"on the returned association {T}")
+    return launches
 
 
 def hfl_args():
@@ -4793,10 +4992,19 @@ def main(argv=None) -> int:
     print("== phase 15: the transformer's training half (its part (d) ran "
           "in phase 14's ranks)")
     t0 = time.perf_counter()
-    phase_train()
-    phase_train_card_vs_cpu()
+    trained = phase_train()
+    cut = phase_train_card_vs_cpu()
     phase_refuse_autograd()
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    print("== phase 18: the roofline bridge (on phase 15's StableLM-1.6B, "
+          "before its weights are freed)")
+    t0 = time.perf_counter()
+    roof = phase_roofline(trained, cut)
+    del trained
+    for name in KERNELS:
+        launches[name] += roof[name]
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     print("== phase 16: the MoE FFN (full-width Qwen1.5-MoE-A2.7B, Mixtral "
           "at smoke width) and the xLSTM kinds (full-width xLSTM-125M)")

@@ -5,7 +5,8 @@
   completion time and its distributions under per-cycle draws.
 * ``iteropt``  — sub-problem I: optimal (a, b); Alg. 2 dual + direct solver.
 * ``assoc``    — sub-problem II: Alg. 3 association + baselines.
-* ``schedule`` — HFLSchedule, ``plan`` and ``plan_joint``.
+* ``schedule`` — HFLSchedule, ``plan``, ``plan_joint`` and the roofline
+  bridge (``problem_from_roofline``, ``plan_from_roofline``).
 * ``events``   — BEYOND-PAPER event-driven async edge-round timeline with
   SSP staleness gating (degenerates to the eq. 34 barrier at bound 0).
 * ``stochastic`` — BEYOND-PAPER per-cycle delay draws: ``DelayModel``
@@ -29,7 +30,8 @@ from repro_torch.core.faults import (FaultModel, FaultPolicy,
                                      faulty_cycle_stats,
                                      wait_for_all_policy)
 from repro_torch.core.problem import HFLProblem
-from repro_torch.core.schedule import HFLSchedule, plan, plan_joint
+from repro_torch.core.schedule import (HFLSchedule, plan, plan_from_roofline,
+                                       plan_joint, problem_from_roofline)
 from repro_torch.core.stochastic import (SCENARIOS, DelayModel,
                                          DeterministicDelays, Scenario,
                                          scenario)
@@ -37,5 +39,6 @@ from repro_torch.core.stochastic import (SCENARIOS, DelayModel,
 __all__ = ["AsyncTimeline", "DelayModel", "DeterministicDelays",
            "FaultModel", "FaultPolicy", "HFLProblem", "HFLSchedule",
            "SCENARIOS", "Scenario", "deadline_failover_policy",
-           "faulty_cycle_stats", "plan", "plan_joint", "scenario",
-           "simulate_async", "wait_for_all_policy"]
+           "faulty_cycle_stats", "plan", "plan_from_roofline", "plan_joint",
+           "problem_from_roofline", "scenario", "simulate_async",
+           "wait_for_all_policy"]

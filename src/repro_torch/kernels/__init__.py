@@ -16,4 +16,7 @@
 * ``build``          — ``nvcc`` build at first use, bound with ``ctypes``.
 * ``grad_guard``     — the attention and scan wrappers' refusal of
   autograd on the card (the kernels have no backward).
+* ``costs``          — each launch's FLOPs and bytes (the wrappers'
+  ``*_cost`` functions), handed to the running cost walks
+  (``repro_torch.roofline.cost``).
 """

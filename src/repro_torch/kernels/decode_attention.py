@@ -16,7 +16,9 @@ For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
 (``grad_guard``).  ``launch_counts`` counts the wrapper's launches, so a
-run can show that its decode steps went through the kernel.
+run can show that its decode steps went through the kernel; each launch
+also hands its cost (``decode_attention_cost``) to the running cost walks
+(``kernels.costs``).
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.grad_guard import refuse_autograd
-from repro_torch.kernels.hier_aggregate import NUM_SMS
+from repro_torch.launch.mesh import NUM_SMS
 
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
@@ -63,6 +65,20 @@ def valid_slots(slot_pos, pos, window: int = 0):
     if window > 0:
         valid &= (pos - slot_pos) < window
     return valid
+
+
+def decode_attention_cost(q, k_cache, v_cache, slot_pos, pos, *,
+                          window: int = 0):
+    """(FLOPs, bytes) of one ``decode_attention`` launch, over the slots
+    that count in this input alone (a device read): 4 hd FLOPs a counted
+    slot of each query head; their K and V rows, q, the output (q's shape
+    and dtype), ``slot_pos`` and ``pos`` moved once."""
+    B, _, H, hd = q.shape
+    n = int(valid_slots(slot_pos, pos, window).sum())
+    return (4 * B * H * hd * n,
+            q.element_size() * (2 * B * k_cache.shape[2] * hd * n
+                                + 2 * q.numel())
+            + slot_pos.element_size() * (slot_pos.numel() + 1))
 
 
 def decode_attention_plain(q, k_cache, v_cache, slot_pos, pos, *,
@@ -238,4 +254,6 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     launch_counts["decode_attention"] += 1
+    costs.record("decode_attention", decode_attention_cost, q, k_cache,
+                 v_cache, slot_pos, pos, window=window)
     return out

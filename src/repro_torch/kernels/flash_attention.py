@@ -14,7 +14,9 @@ For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
 (``grad_guard``).  ``launch_counts`` counts the launches, so a run can
-show that its attention layers went through the kernel.
+show that its attention layers went through the kernel; each launch also
+hands its cost (``flash_attention_cost``) to the running cost walks
+(``kernels.costs``).
 
 On the card a block serves the whole query group of one (batch, KV head):
 its rows are consecutive (query position, head) pairs, ``rows_per_warp``
@@ -25,11 +27,12 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.grad_guard import refuse_autograd
-from repro_torch.kernels.hier_aggregate import NUM_SMS
+from repro_torch.launch.mesh import NUM_SMS
 
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
@@ -112,6 +115,25 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int, device=None):
     return m
 
 
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query row, key) pairs of one (batch, head) that
+    ``attention_mask`` lets through, counted without building it."""
+    p = np.arange(sq, dtype=np.int64) + (sk - sq)      # query positions
+    hi = np.minimum(p, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_cost(q, k, v, *, causal: bool = True, window: int = 0):
+    """(FLOPs, bytes) of one ``flash_attention`` launch: 4 hd FLOPs an
+    unmasked (query, key) pair of each query head (the two products); q,
+    k and v read once and the output (q's shape and dtype) written once."""
+    B, Sq, H, hd = q.shape
+    pairs = B * H * unmasked_pairs(Sq, k.shape[1], causal, window)
+    return (4 * hd * pairs,
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain PyTorch version: dense fp32 softmax over the masked scores,
     masked entries at the finite ``NEG_INF``.  Returns q's dtype."""
@@ -187,4 +209,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launch_counts["flash_attention"] += 1
+    costs.record("flash_attention", flash_attention_cost, q, k, v,
+                 causal=causal, window=window)
     return out

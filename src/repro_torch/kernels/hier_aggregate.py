@@ -28,7 +28,9 @@ of ``segment_sum`` and ``weighted_mean`` (``segment_sum_plan``,
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  ``launch_counts`` counts the launches, so a run can
-show that its aggregation events went through the kernels.
+show that its aggregation events went through the kernels; each launch
+also hands its cost (``*_cost``) to the running cost walks
+(``kernels.costs``).
 """
 from __future__ import annotations
 
@@ -36,11 +38,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
+from repro_torch.launch.mesh import NUM_SMS
 
 TILE = 128                     # columns per block, as in csrc/*.cu
 SMEM_BYTES = 232_448           # the shared memory an H100 block may use
-NUM_SMS = 132                  # streaming multiprocessors of an H100 SXM
 #: Most groups ``segment_aggregate`` and ``segment_sum`` take: one warp's
 #: (M, TILE) sums and (M,) weight sums live in one block's shared memory.
 MAX_GROUPS = SMEM_BYTES // (4 * (TILE + 1))
@@ -175,6 +177,40 @@ def segment_sum_plain(x, w, group_ids, num_groups: int):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Costs of one launch (``costs.record``): a multiply and an add an element
+# of x; each input read once, each output written once.
+# ---------------------------------------------------------------------------
+
+
+def segment_aggregate_cost(x, w, group_ids, num_groups: int):
+    """(FLOPs, bytes) of one ``segment_aggregate`` launch: x, w and the
+    group ids read, the (N, F) fp32 result written."""
+    n, f = x.shape
+    return 2 * n * f, n * f * (x.element_size() + 4) + 8 * n
+
+
+def cloud_aggregate_cost(x, w):
+    """(FLOPs, bytes) of one ``cloud_aggregate`` launch: x and w read, the
+    (N, F) fp32 result written."""
+    n, f = x.shape
+    return 2 * n * f, n * f * (x.element_size() + 4) + 4 * n
+
+
+def weighted_mean_cost(x, w):
+    """(FLOPs, bytes) of one ``weighted_mean`` launch: x and w read, the
+    (F,) fp32 mean written."""
+    n, f = x.shape
+    return 2 * n * f, n * f * x.element_size() + 4 * n + 4 * f
+
+
+def segment_sum_cost(x, w, group_ids, num_groups: int):
+    """(FLOPs, bytes) of one ``segment_sum`` launch: x, w and the group ids
+    read, the (M, F) fp32 accumulator read and written."""
+    n, f = x.shape
+    return 2 * n * f, n * f * x.element_size() + 8 * n + 8 * num_groups * f
+
+
 def load_width(n_cols: int, element_size: int, data_ptr: int) -> int:
     """Elements of x per load in the four kernels: 4, 2 or 1, the widest
     that divides the row's length and whose bytes divide x's address (16-,
@@ -224,6 +260,8 @@ def segment_aggregate(x, w, group_ids, num_groups: int):
                 load_width(f, x.element_size(), x.data_ptr()),
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
+        costs.record("segment_aggregate", segment_aggregate_cost, x, w,
+                     group_ids, num_groups)
     return out
 
 
@@ -250,6 +288,7 @@ def cloud_aggregate(x, w):
                 load_width(f, x.element_size(), x.data_ptr()),
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
+        costs.record("cloud_aggregate", cloud_aggregate_cost, x, w)
     return out
 
 
@@ -296,6 +335,7 @@ def weighted_mean(x, w):
                 load_width(f, x.element_size(), x.data_ptr()),
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
+        costs.record("weighted_mean", weighted_mean_cost, x, w)
     return out
 
 
@@ -361,4 +401,6 @@ def segment_sum(x, w, group_ids, num_groups: int, out=None):
                 load_width(f, x.element_size(), x.data_ptr()),
                 int(x.dtype == torch.bfloat16), x.device.index or 0,
                 torch.cuda.current_stream(x.device).cuda_stream)
+        costs.record("segment_sum", segment_sum_cost, x, w, group_ids,
+                     num_groups)
     return out

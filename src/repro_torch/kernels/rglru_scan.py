@@ -8,7 +8,9 @@ For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
 (``grad_guard``).  ``launch_counts`` counts the launches, so a run can
-show that its RG-LRU layers went through the kernel.
+show that its RG-LRU layers went through the kernel; each launch also
+hands its cost (``rglru_scan_cost``) to the running cost walks
+(``kernels.costs``).
 """
 from __future__ import annotations
 
@@ -16,11 +18,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.grad_guard import refuse_autograd
+from repro_torch.launch.mesh import NUM_SMS
 
 TILE = 128                     # channels per block, as in csrc/rglru_scan.cu
-NUM_SMS = 132                  # streaming multiprocessors of an H100 SXM
 #: ``rglru_scan`` splits the sequence into chunks until about this many
 #: threads (one per (batch, chunk, channel)) are in flight: a full H100
 #: (2,048 resident threads per SM) ...
@@ -63,6 +65,13 @@ def rglru_scan_plain(a, b):
         a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     return h
+
+
+def rglru_scan_cost(a, b):
+    """(FLOPs, bytes) of one ``rglru_scan`` launch: a multiply and an add a
+    step of each channel; a and b read once, the fp32 h written once."""
+    return 2 * a.numel(), a.numel() * (a.element_size() + b.element_size()
+                                       + 4)
 
 
 def rglru_scan(a, b):
@@ -109,4 +118,5 @@ def rglru_scan(a, b):
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")
     launch_counts["rglru_scan"] += 1
+    costs.record("rglru_scan", rglru_scan_cost, a, b)
     return out

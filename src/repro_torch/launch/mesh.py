@@ -2,7 +2,8 @@
 and the SPMD backend's.
 
 Counterpart of the JAX package's ``repro/launch/mesh.py`` (``DATA_AXIS``,
-``MODEL_AXIS``, ``make_agg_mesh``, ``make_fl_mesh``).  A JAX mesh is one
+``MODEL_AXIS``, ``make_agg_mesh``, ``make_fl_mesh``, and the hardware
+constants: the H100's where the reference has a TPU v5e's).  A JAX mesh is one
 program over many devices (``shard_map``).  Here a mesh is a set of
 ``torch.distributed`` ranks, one process each, and every sharded function
 is called by every rank with its LOCAL slab (multi-controller):
@@ -41,6 +42,28 @@ from repro_torch.device import resolve_device
 # UE rows shard over 'data', feature columns over 'model'.
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+# H100 SXM5 constants (per GPU), the counterparts of the reference's TPU
+# v5e constants: the roofline (``repro_torch.roofline``), its delay-model
+# bridge (``core.schedule.plan_from_roofline``), the kernels' launch rules
+# and ``chip_smoke.py``'s bounds read them.  Each is a peak from NVIDIA's
+# H100 Tensor Core GPU data sheet (the DGX H100 sheet for the links), not
+# a measurement.
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 on the tensor cores
+PEAK_FLOPS_FP32 = 67e12           # FLOP/s, fp32 off the tensor cores (the
+#                                   port keeps TF32 off)
+HBM_BW = 3.35e12                  # bytes/s, HBM3
+HBM_BYTES = 80e9                  # bytes
+NUM_SMS = 132                     # streaming multiprocessors
+# The links, in bytes/s EACH WAY (one direction's rate, what a transfer
+# out of a GPU sees; the data sheets sum both directions):
+NVLINK_BW = 450e9                 # NVLink 4 (900 GB/s a GPU, both ways
+#                                   summed): the edge link, where the
+#                                   reference has ICI_BW
+IB_BW = 50e9                      # NDR InfiniBand, one 400 Gb/s
+#                                   ConnectX-7 a GPU in a DGX H100: the
+#                                   cloud link, where the reference has
+#                                   DCN_BW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,14 +215,25 @@ def _rank_device(device, rank: int) -> torch.device:
     return dev
 
 
-def _rank_main(rank, world, store_path, timeout_s, on_cuda, fn, args,
+#: A rank's start-up in ``run_ranks``, as ``time.time()`` stamps: its
+#: function and arguments loaded (their modules imported), its card set
+#: (the CUDA context made) and its process group joined.
+rank_times: dict = {}
+
+
+def _rank_main(rank, world, store_path, timeout_s, on_cuda, payload,
                results) -> None:
     try:
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
+        rank_times["entered"] = time.time()
         if on_cuda:
             torch.cuda.set_device(rank % torch.cuda.device_count())
+        rank_times["device"] = time.time()
         dist.init_process_group(
             "gloo", store=dist.FileStore(store_path, world), rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        rank_times["group"] = time.time()
         try:
             # pickled here, by value: a tensor left to the queue's own
             # pickler would be shared by a file descriptor that dies with
@@ -217,9 +251,11 @@ def run_ranks(fn, world: int, *args, device=None,
     """Run ``fn(*args)`` in ``world`` spawned ranks of a gloo process group
     and return their results, in rank order.
 
-    ``fn`` must be importable (a module-level function; ``spawn`` pickles
-    it by name) and return something picklable (numpy arrays, CPU tensors:
-    they are copied, so they outlive the rank).  The ranks meet through a
+    ``fn`` must be importable (a module-level function, pickled by name),
+    ``args`` picklable (they reach every rank by value, through a file in
+    the temporary directory), and ``fn`` must return something picklable
+    (numpy arrays, CPU tensors: they are copied, so they outlive the
+    rank).  The ranks meet through a
     ``FileStore`` in a temporary directory; collectives time out after
     ``timeout_s``, and the whole run is cut there too: the ranks are
     killed and ``TimeoutError`` raised.  A
@@ -236,9 +272,17 @@ def run_ranks(fn, world: int, *args, device=None,
     results = ctx.Queue()
     out, failed = {}, True
     with tempfile.TemporaryDirectory() as tmp:
+        # fn and args reach the ranks through a file, by value: a spawned
+        # child reads its Process object only after it has imported the
+        # parent's main module, so a Process object larger than the pipe's
+        # buffer would hold each start() until the rank before had
+        # imported, and the ranks would start one after the other
+        payload = os.path.join(tmp, "payload")
+        with open(payload, "wb") as f:
+            pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_rank_main, daemon=True, args=(
-            r, world, os.path.join(tmp, "store"), timeout_s, on_cuda, fn,
-            args, results)) for r in range(world)]
+            r, world, os.path.join(tmp, "store"), timeout_s, on_cuda,
+            payload, results)) for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout_s
