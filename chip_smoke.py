@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``python3 chip_smoke.py --time-aggregation`` times only
+(``python3 chip_smoke.py --mesh-dryrun`` runs phase 19's dry runs alone
+and prints them as one JSON line; ``python3 chip_smoke.py
+--time-aggregation`` times only
 ``segment_aggregate``, ``cloud_aggregate``, ``weighted_mean`` and
 ``segment_sum`` and runs phase 6, through the wrappers alone; ``python3
 chip_smoke.py --time-rounds`` times phase 3's warm sync round and phase
@@ -269,9 +271,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``plan_from_roofline`` on (a)'s terms for 2 edges of 4 GPUs at the
    fp32 parameters' bytes on the H100's links: ``t_step`` =
    max(compute_s, memory_s) and T = eq. 34 on the returned association.
-19. Kernel records as JSON (``launches``: each path's count, read around
+19. The transformer sharded over 4 gloo ranks on the card (DTensors,
+   ``Model(mesh=, rules=)``; every collective staged through pinned host
+   memory), begun beside phase 14 and finished before phase 15: (a)
+   full-width StableLM-1.6B's SGD step on a 2 x 2 ('data', 'model') mesh
+   (fp32, B=8, S=128, cuDNN's deterministic algorithms) against the
+   single-device step on the same keyed draws: the loss within 1e-5
+   relative, every leaf within 1e-5 of its largest magnitude; (b)
+   full-width Qwen1.5-MoE-A2.7B in bf16 through K5 and K7 on a 1 x 4 mesh
+   (B=2, 1,024 tokens, 4 steps) under the default and the expert-parallel
+   rules, routes pinned: logits within phase 17's bf16 rule, every greedy
+   token equal but at the single-device run's near-ties, 24 K5 and 96 K7
+   launches on every rank; (c) the dry run (``--mesh-dryrun``, a process
+   of its own) of (a) and (b) on fake groups: per-rank FLOPs, collective
+   bytes and argument bytes equal rank 0's walk of the real step, then
+   the production pair stablelm-1.6b x train_4k on 16 x 16.
+20. Kernel records as JSON (``launches``: each path's count, read around
    its run with the counts reset just before it, summed over the paths
-   and, in phases 9 and 14, over the ranks), then the result line.
+   and, in phases 9, 14 and 19, over the ranks), then the result line.
 
 Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``/usr/local/cuda``) and
 ``nvidia-smi``.  Without a card it exits 1 before printing any result.
@@ -321,6 +338,8 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.roofline import (CostWalk, record_from_trace,  # noqa: E402
                                   roofline_report)
+from torch.utils._python_dispatch import (  # noqa: E402
+    _disable_current_modes)
 
 T_IMPORTED = time.time()
 
@@ -2118,21 +2137,27 @@ class PinnedRoutes:
 
         def rep(cfg, router_w, xt):
             _, own, aux, z = orig(cfg, router_w, xt)
-            pinned = next(routes).to(xt.device)
-            _, probs = moe.router_probs(router_w, xt)
-            top_p = torch.gather(probs, 1, pinned)
-            top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-            differ = (torch.sort(own, -1).values
-                      != torch.sort(pinned, -1).values).any(-1)
-            k = pinned.shape[1]
-            srt = torch.sort(probs, -1, descending=True).values
-            margins = (srt[:, k - 1] - srt[:, k])[differ]
-            stats["used"] += 1
-            stats["decisions"] += differ.numel()
-            stats["flips"] += int(differ.sum())
-            if margins.numel():
-                stats["margin"] = min(stats["margin"], float(margins.min()))
-            return top_p.to(xt.dtype), pinned, aux, z
+            # the pinning's own ops are not the model's: a cost walk running
+            # (phase 19) does not see them
+            with _disable_current_modes():
+                pinned = next(routes).to(xt.device)
+                _, probs = moe.router_probs(router_w, xt)
+                top_p = torch.gather(probs, 1, pinned)
+                top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True),
+                                                1e-9)
+                differ = (torch.sort(own, -1).values
+                          != torch.sort(pinned, -1).values).any(-1)
+                k = pinned.shape[1]
+                srt = torch.sort(probs, -1, descending=True).values
+                margins = (srt[:, k - 1] - srt[:, k])[differ]
+                stats["used"] += 1
+                stats["decisions"] += differ.numel()
+                stats["flips"] += int(differ.sum())
+                if margins.numel():
+                    stats["margin"] = min(stats["margin"],
+                                          float(margins.min()))
+                top_p = top_p.to(xt.dtype)
+            return top_p, pinned, aux, z
 
         with mock.patch.object(moe, "_route", rep):
             yield
@@ -4767,6 +4792,505 @@ def phase_frontends() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the sharded transformer on 4 ranks, and the dry run
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SHAPE = (2, 2)          # ('data', 'model'): FSDP x TP
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 128
+MESH_TRAIN_LR = 0.1                # SGD (AdamW is sign-sensitive)
+MESH_TRAIN_RTOL = 1e-5             # loss (relative), each leaf (of its
+#                                    largest magnitude) after the step, and
+#                                    each leaf's update (of the update's,
+#                                    plus one fp32 rounding of the leaf)
+MESH_SERVE_SHAPE = (1, 4)          # the local T is the global T
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_GEN = 2, 1024, 4
+MESH_RING = 2 * MESH_SERVE_PROMPT  # the decode walk's ring, every slot full
+MESH_TOKEN_PROMPT = 128            # the fp32-activation greedy run's prompt
+MESH_SEED = 0                      # ``sharding.init_keyed``'s draws
+MESH19_TIMEOUT_S = 900
+
+
+def mesh_train_batch(device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+    t = torch.randint(0, get_config(CLI_ARCH).vocab_size,
+                      (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ + 1), generator=gen,
+                      device=device).to(torch.int32)
+    return {"tokens": t[:, :-1].contiguous(), "targets": t[:, 1:].contiguous()}
+
+
+def mesh_serve_tokens(device) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+    return torch.randint(0, get_config(MOE_ARCH).vocab_size,
+                         (MESH_SERVE_BATCH, MESH_SERVE_PROMPT), generator=gen,
+                         device=device).to(torch.int32)
+
+
+def mesh_serve_model(impl="kernel", act=torch.bfloat16, mesh=None,
+                     rules=None) -> Model:
+    return Model(get_config(MOE_ARCH), mesh=mesh, rules=rules, impl=impl,
+                 param_dtype=torch.bfloat16, act_dtype=act)
+
+
+def greedy(model, params, tokens, gen: int, follow=None,
+           costs=None) -> tuple:
+    """Prefill logits, then ``gen`` decode steps' logits: of the greedy
+    tokens, or teacher-forced with ``follow`` (B, gen).  Returns (logits
+    list on the CPU in fp32, the tokens fed).  With a dict ``costs`` the
+    prefill is walked (``costs["prefill"]``: the walk's dict)."""
+    from repro_torch.parallel import sharding as shd
+    batch = {"tokens": tokens}
+    if costs is None:
+        logits, state = model.prefill(params, batch)
+    else:
+        (logits, state), costs["prefill"] = walk(model.prefill, params,
+                                                 batch)
+    out, fed = [shd.full(logits).float().cpu()], []
+    for i in range(gen):
+        nxt = (follow[:, i:i + 1] if follow is not None else
+               torch.argmax(shd.full(logits), -1).to(torch.int32))
+        fed.append(nxt.cpu())
+        if model.mesh is not None:
+            nxt = shd.distribute_tree(model.mesh, {"t": nxt},
+                                      {"t": ("batch", None)},
+                                      model.rules)["t"]
+        logits, state = model.decode_step(params, state, nxt)
+        out.append(shd.full(logits).float().cpu())
+    return out, torch.cat(fed, 1)
+
+
+def mesh_model_references() -> dict:
+    """Part (b)'s single-device references, before the spawn: full-width
+    Qwen1.5-MoE-A2.7B in bf16 (``init_keyed``'s draws), the kernel route's
+    prefill and MESH_SERVE_GEN greedy steps with its routes recorded, and
+    phase 17's bf16 yardstick: the plain route (``xla_flash``) with bf16
+    and with fp32 activations on the same weights, teacher-forced with the
+    greedy tokens, routes pinned; then the kernel route with fp32
+    activations on the prompt's first MESH_TOKEN_PROMPT tokens, its
+    MESH_SERVE_GEN greedy tokens and routes recorded (the sharded runs'
+    tokens must equal them).  Its weights are freed after."""
+    from repro_torch.parallel import sharding as shd
+    t0 = time.perf_counter()
+    model = mesh_serve_model()
+    params = shd.init_keyed(model, MESH_SEED)
+    tokens = mesh_serve_tokens("cuda")
+    pin = PinnedRoutes()
+    with torch.no_grad(), pin.record():
+        logits, fed = greedy(model, params, tokens, MESH_SERVE_GEN)
+    calls = len(pin.routes)
+    yard = {}
+    for name, act in (("plain", torch.bfloat16), ("wide", torch.float32)):
+        m = mesh_serve_model("xla_flash", act)
+        with torch.no_grad(), pin.replay(f"phase 19 {name}", calls):
+            yard[name] = greedy(m, params, tokens, MESH_SERVE_GEN,
+                                follow=fed.to(tokens.device))[0]
+    pin32 = PinnedRoutes()
+    with torch.no_grad(), pin32.record():
+        logits32, fed32 = greedy(mesh_serve_model(act=torch.float32), params,
+                                 tokens[:, :MESH_TOKEN_PROMPT],
+                                 MESH_SERVE_GEN)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 19 references (single device, full-width {MOE_ARCH} "
+          f"bf16, B={MESH_SERVE_BATCH}, S={MESH_SERVE_PROMPT}, "
+          f"{MESH_SERVE_GEN} greedy steps): greedy tokens "
+          f"{fed.tolist()}; fp32 activations, S={MESH_TOKEN_PROMPT}: "
+          f"{fed32.tolist()}; {time.perf_counter() - t0:.1f} s")
+    return dict(logits=logits, tokens=fed, routes=[r.cpu() for r in
+                                                   pin.routes],
+                calls=calls, logits32=logits32, tokens32=fed32,
+                routes32=[r.cpu() for r in pin32.routes],
+                calls32=len(pin32.routes), **yard)
+
+
+def full_ring_state(model, shape):
+    """A decode state of ``shape``'s ring on ``model.mesh``, every slot
+    holding a token (slot i token i, the next position MESH_RING), k and v
+    random: the state whose every slot K7 counts, as the dry run's."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.parallel import sharding as shd
+    sh, shapes = steps_lib.decode_shardings(model, shape)
+    _, s_sh, t_sh = sh
+    state = shd.empty_sharded(s_sh, shapes[1], "cuda")
+    for name, t in state["scanned"].items():
+        loc = t.to_local()
+        if name in ("k", "v"):
+            loc.normal_()
+        elif name == "slot_pos":
+            loc.copy_(torch.arange(loc.shape[-1], device="cuda"))
+        else:
+            loc.fill_(MESH_RING)
+    tokens = shd.empty_sharded(t_sh, shapes[2], "cuda")
+    tokens.to_local().zero_()
+    return state, tokens
+
+
+def mesh_train_reference(batch, mesh, shardings) -> tuple:
+    """A rank's single-device SGD step of part (a), before the mesh step
+    (``init_keyed``'s draws, cuDNN's deterministic algorithms): (the loss,
+    this rank's shard of every updated leaf; the rest freed at once)."""
+    from repro_torch.fl.flatten import tree_leaves as leaves
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import sgd
+    from repro_torch.parallel import sharding as shd
+    model = Model(get_config(CLI_ARCH), impl="xla_flash", remat=False)
+    params = shd.init_keyed(model, MESH_SEED)
+    step = steps_lib.make_train_step(model, sgd(MESH_TRAIN_LR))
+    params, _, mets = step(params, (), batch)
+    mine = [shd.local_shard(leaf, mesh, sh).clone()
+            for leaf, sh in zip(leaves(params), leaves(shardings))]
+    del params
+    torch.cuda.synchronize()
+    return float(mets["loss"]), mine
+
+
+def mesh_model_rank(refs: dict) -> dict:
+    """Phase 19's rank: (a) the sharded SGD step of full-width StableLM-1.6B
+    on a 2 x 2 mesh, walked, every leaf's shard and its update held to
+    the same shards of the single-device step (each rank runs that step
+    first, keeping its shards of the result); (b) full-width
+    Qwen1.5-MoE-A2.7B served on a 1 x 4 mesh under the default and the
+    expert-parallel rules, routes pinned to the single-device run's, its
+    prefill and a full-ring decode step walked, then with fp32
+    activations MESH_SERVE_GEN greedy steps on MESH_TOKEN_PROMPT tokens.
+    Every collective is staged through host memory
+    (``StagedCollectives``)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.fl.flatten import tree_leaves as leaves
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import StagedCollectives, make_host_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.parallel import sharding as shd
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    t_rank = time.perf_counter()
+    times = {}
+    with StagedCollectives(), torch.no_grad():
+        # (a) training
+        t0 = time.perf_counter()
+        batch = mesh_train_batch("cuda")
+        mesh = make_host_mesh(*MESH_TRAIN_SHAPE)
+        model = Model(get_config(CLI_ARCH), mesh=mesh,
+                      rules=shd.DEFAULT_RULES, impl="xla_flash", remat=False)
+        shardings = shd.logical_to_sharding(mesh, model.axes(),
+                                            model.param_shapes(),
+                                            shd.DEFAULT_RULES)
+        ref = mesh_train_reference(batch, mesh, shardings)
+        torch.cuda.empty_cache()
+        times["a_reference"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = shd.init_keyed(model, MESH_SEED, mesh, shd.DEFAULT_RULES)
+        times["a_init"] = time.perf_counter() - t0
+        dbatch = shd.distribute_tree(mesh, batch, {"tokens": ("batch", "seq"),
+                                                   "targets": ("batch",
+                                                               "seq")},
+                                     shd.DEFAULT_RULES)
+        arg_bytes = local_bytes((params, dbatch))
+        step = steps_lib.make_train_step(model, sgd(MESH_TRAIN_LR))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (params, _, mets), cost = walk(step, params, (), dbatch)
+        out["train"] = dict(s=time.perf_counter() - t0, flops=cost["flops"],
+                            coll=cost["collective_bytes"],
+                            arg_bytes=arg_bytes,
+                            loss=float(shd.full(mets["loss"])))
+        # each leaf's shard against the same shard of the single-device
+        # step, over the leaf's largest magnitude; each leaf's update
+        # (after - init) against the single-device update, over its
+        # allowance: MESH_TRAIN_RTOL of the update's largest magnitude
+        # plus one fp32 rounding of the leaf's largest (two sums w + u
+        # with u a rounding apart round one ulp apart: a norm scale near
+        # 1 moves by ~1e-3, one ulp 1.2e-7 of it).  The step wrote into
+        # its parameters: the init is drawn again (the same keyed draws),
+        # so no rank keeps a copy through the step.  Maxima over the ranks
+        after = [leaf.to_local() for leaf in leaves(params)]
+        init = [leaf.to_local() for leaf in leaves(
+            shd.init_keyed(model, MESH_SEED, mesh, shd.DEFAULT_RULES))]
+        errs = torch.stack([(a - r).abs().max()
+                            for a, r in zip(after, ref[1])])
+        scales = torch.stack([r.abs().max() for r in ref[1]])
+        u_errs = torch.stack([((a - i) - (r - i)).abs().max()
+                              for a, i, r in zip(after, init, ref[1])])
+        u_scales = torch.stack([(r - i).abs().max()
+                                for i, r in zip(init, ref[1])])
+        for t in (errs, scales, u_errs, u_scales):
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        eps = torch.finfo(torch.float32).eps
+        out["train"].update(
+            ref_loss=ref[0],
+            worst=float((errs / scales.clamp_min(1e-30)).max()),
+            update_rel=float((u_errs / u_scales.clamp_min(1e-30)).max()),
+            worst_update=float((u_errs / (MESH_TRAIN_RTOL * u_scales
+                                          + eps * scales)).max()),
+            least_update=float((u_scales / scales.clamp_min(1e-30)).min()))
+        times["a_step"] = out["train"]["s"]
+        del params, ref, dbatch, init, after
+        torch.cuda.empty_cache()
+        # (b) serving
+        mesh = make_host_mesh(*MESH_SERVE_SHAPE)
+        tokens = mesh_serve_tokens("cuda")
+        pin = PinnedRoutes()
+        pin.routes = refs["routes"]
+        for rules_name in ("default", "expert_parallel"):
+            t0 = time.perf_counter()
+            rules = shd.RULE_SETS[rules_name]
+            model = mesh_serve_model(mesh=mesh, rules=rules)
+            params = shd.init_keyed(model, MESH_SEED, mesh, rules)
+            dtok = shd.distribute_tree(mesh, {"t": tokens},
+                                       {"t": ("batch", "seq")}, rules)["t"]
+            times[f"b_{rules_name}_init"] = time.perf_counter() - t0
+            reset_counts()
+            torch.cuda.synchronize()
+            # the default rules' prefill walked: the pinning's own ops are
+            # hidden from the walk, so it counts the prefill's
+            walked = {} if rules_name == "default" else None
+            with pin.replay(f"rank {rank} {rules_name}", refs["calls"]):
+                logits, _ = greedy(model, params, dtok, MESH_SERVE_GEN,
+                                   follow=refs["tokens"].to("cuda"),
+                                   costs=walked)
+            torch.cuda.synchronize()
+            res = dict(s=time.perf_counter() - t0, logits=logits,
+                       launches=counts())
+            if rules_name == "default":
+                res["prefill_args"] = local_bytes((params, {"tokens": dtok}))
+                cost = walked["prefill"]
+                res["prefill"] = (cost["flops"], cost["collective_bytes"])
+                shape = ShapeConfig("decode", MESH_RING, MESH_SERVE_BATCH,
+                                    "decode")
+                state, ntok = full_ring_state(model, shape)
+                res["decode_args"] = local_bytes((params, state, ntok))
+                _, cost = walk(steps_lib.make_serve_step(model), params,
+                               state, ntok)
+                res["decode"] = (cost["flops"], cost["collective_bytes"])
+                del state
+            # fp32 activations, greedy: the tokens must equal one device's
+            t1 = time.perf_counter()
+            pin32 = PinnedRoutes()
+            pin32.routes = refs["routes32"]
+            dtok32 = shd.distribute_tree(
+                mesh, {"t": tokens[:, :MESH_TOKEN_PROMPT]},
+                {"t": ("batch", "seq")}, rules)["t"]
+            reset_counts()
+            with pin32.replay(f"rank {rank} {rules_name} fp32",
+                              refs["calls32"]):
+                res["logits32"], res["tokens32"] = greedy(
+                    mesh_serve_model(act=torch.float32, mesh=mesh,
+                                     rules=rules), params, dtok32,
+                    MESH_SERVE_GEN)
+            torch.cuda.synchronize()
+            res["launches32"] = counts()
+            res["s32"] = time.perf_counter() - t1
+            out[rules_name] = res
+            times[f"b_{rules_name}"] = time.perf_counter() - t0
+            del params, model
+            torch.cuda.empty_cache()
+        out["peak"] = torch.cuda.max_memory_allocated()
+    out["s"] = time.perf_counter() - t_rank
+    out["times"] = {k: round(v, 2) for k, v in times.items()}
+    return out
+
+
+def equal_tokens(logits, ref_tokens) -> int:
+    """How many of the teacher-forced steps' greedy tokens (the prompt's
+    last position, then each step) equal the reference's."""
+    return sum(int((torch.argmax(lg[:, -1], -1) == ref_tokens[:, i]).sum())
+               for i, lg in enumerate(logits[:MESH_SERVE_GEN]))
+
+
+def mesh_dryrun() -> int:
+    """``--mesh-dryrun``: part (c)'s dry runs, in a process of their own
+    beside phase 19's ranks: (a)'s train step on a fake 2 x 2 group, (b)'s
+    prefill and full-ring decode step on a fake 1 x 4 group, each on the
+    card's device type (fake tensors: nothing runs), then the production
+    pair stablelm-1.6b x train_4k on 16 x 16.  Prints one JSON line."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import sgd
+    out = {}
+    t0 = time.perf_counter()
+    with dryrun.fake_group(4):
+        mesh = make_host_mesh(*MESH_TRAIN_SHAPE)
+        out["train"] = dryrun.dryrun_step(
+            get_config(CLI_ARCH), ShapeConfig("train", MESH_TRAIN_SEQ,
+                                              MESH_TRAIN_BATCH, "train"),
+            mesh, param_dtype=torch.float32, act_dtype=torch.float32,
+            remat=False, optimizer=sgd(MESH_TRAIN_LR))
+    with dryrun.fake_group(4):
+        mesh = make_host_mesh(*MESH_SERVE_SHAPE)
+        for kind, seq in (("prefill", MESH_SERVE_PROMPT),
+                          ("decode", MESH_RING)):
+            out[kind] = dryrun.dryrun_step(
+                get_config(MOE_ARCH), ShapeConfig(kind, seq,
+                                                  MESH_SERVE_BATCH, kind),
+                mesh, impl="kernel")
+    out["cut_s"] = time.perf_counter() - t0
+    out["production"] = dryrun.dryrun_pair(CLI_ARCH, "train_4k")
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps(out, default=str))
+    return 0
+
+
+class MeshModelPhase:
+    """Phase 19: the transformer sharded over ranks (DTensors, gloo, one
+    card).  (a) full-width StableLM-1.6B's SGD step on a 2 x 2 mesh (FSDP
+    over 'data', TP over 'model'), fp32, B=8, S=128, held to the
+    single-device step on the same draws: the loss within 1e-5 relative,
+    every leaf within 1e-5 of its largest magnitude, every leaf's update
+    within 1e-5 of the update's plus one fp32 rounding of the leaf.  (b)
+    full-width Qwen1.5-MoE-A2.7B in bf16 through the kernel route on a 1 x
+    4 mesh, B=2, S=1,024, MESH_SERVE_GEN steps teacher-forced with the
+    single-device run's greedy tokens, under the default and the
+    expert-parallel rules: logits within phase 17's bf16 rule (routes
+    pinned), K5 and K7 launched on every rank; then with fp32
+    activations, MESH_SERVE_GEN greedy steps on MESH_TOKEN_PROMPT tokens
+    (routes pinned): every token equal to the single-device run's, K5 and
+    K7 launched on every rank.  (c) the dry run of (a) and (b) on fake
+    groups of the same meshes: per-rank FLOPs, collective bytes and
+    argument bytes equal rank 0's walk of the real step; then the
+    production pair stablelm-1.6b x train_4k on 16 x 16 and its roofline
+    terms.
+
+    ``start`` runs the references and the ranks on a thread of their own,
+    and ``start_dryrun`` the dry run in a subprocess, both beside phase 14
+    (LeNet: the card's memory holds both phases); ``finish`` waits for
+    them and checks."""
+
+    def __init__(self):
+        self.state, self.thread, self.dry = {}, None, None
+
+    def start_dryrun(self) -> None:
+        self.t0 = time.perf_counter()
+        self.dry = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-dryrun"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def start(self) -> None:
+        def run():
+            try:
+                self.state["refs"] = mesh_model_references()
+                t0 = time.perf_counter()
+                self.state["ranks"] = run_ranks(mesh_model_rank, 4,
+                                                self.state["refs"],
+                                                timeout_s=MESH19_TIMEOUT_S)
+                self.state["spawn"] = time.perf_counter() - t0
+            except BaseException as e:       # re-raised by finish
+                self.state["error"] = e
+        self.t_ranks = time.perf_counter()
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def finish(self) -> dict:
+        try:
+            if self.thread is None:
+                self.start()
+            self.thread.join(timeout=MESH19_TIMEOUT_S + 60)
+            check(not self.thread.is_alive(), "phase 19's ranks did not end")
+            if "error" in self.state:
+                raise self.state["error"]
+            out, err = self.dry.communicate(timeout=MESH19_TIMEOUT_S)
+        finally:
+            if self.dry.poll() is None:
+                self.dry.kill()
+                self.dry.wait()
+        print(f"  phase 19 (started {self.t_ranks - self.t0:.1f} s after "
+              f"its dry run): references and ranks "
+              f"{time.perf_counter() - self.t_ranks:.1f} s")
+        return check_mesh_model(self.state["refs"], self.state["ranks"],
+                                self.state["spawn"], self.dry.returncode,
+                                out, err)
+
+
+def check_mesh_model(refs, ranks, spawn_s, rc, out, err) -> dict:
+    """Phase 19's checks (see ``MeshModelPhase``); returns the kernels'
+    launches over the ranks."""
+    print(f"  phase 19 ranks: {spawn_s:.1f} s of spawn; each rank "
+          f"{[round(r['s'], 1) for r in ranks]} s; peak card memory a rank "
+          f"{[r['peak'] for r in ranks]} B")
+    check(rc == 0, f"--mesh-dryrun failed: {err[-3000:]}")
+    dr = json.loads(out.strip().splitlines()[-1])
+    r0 = ranks[0]
+    a = r0["train"]
+    print(f"  (a) {CLI_ARCH} SGD step on {MESH_TRAIN_SHAPE}: {a['s']:.2f} s "
+          f"(walked); loss {a['loss']!r} against {a['ref_loss']!r} on one "
+          f"device; worst leaf {a['worst']:.3e} of its largest magnitude; "
+          f"worst update {a['update_rel']:.3e} of the update's largest "
+          f"magnitude, {a['worst_update']:.3f} of its allowance "
+          f"({MESH_TRAIN_RTOL:g} of that plus one fp32 rounding of the "
+          f"leaf); the smallest update {a['least_update']:.3e} of its "
+          f"leaf's largest magnitude")
+    check(abs(a["loss"] - a["ref_loss"]) <= MESH_TRAIN_RTOL * abs(
+        a["ref_loss"]), "(a): the sharded loss differs from one device's")
+    check(a["worst"] <= MESH_TRAIN_RTOL, f"(a): a leaf after the sharded "
+          f"step is {a['worst']:.3e} off the single-device step's")
+    check(a["worst_update"] <= 1.0, f"(a): a leaf's update in the sharded "
+          f"step is {a['worst_update']:.3f} of its allowance off the "
+          "single-device step's")
+    print(f"  phase 19 rank times (s): {[r['times'] for r in ranks]}")
+    launched = {"flash_attention": 0, "decode_attention": 0}
+    for rules_name in ("default", "expert_parallel"):
+        for r in ranks:
+            res = r[rules_name]
+            label = f"(b) {rules_name}, rank {r['rank']}"
+            want = expect(flash_attention=MOE_LAYERS,
+                          decode_attention=MOE_LAYERS * MESH_SERVE_GEN)
+            check(res["launches"] == want, f"{label}: launches "
+                  f"{res['launches']} != {want}")
+            check(torch.equal(res["tokens32"], refs["tokens32"]),
+                  f"{label}, fp32 activations: greedy tokens "
+                  f"{res['tokens32'].tolist()} != the single-device run's "
+                  f"{refs['tokens32'].tolist()}")
+            check(res["launches32"] == want, f"{label}, fp32 activations: "
+                  f"launches {res['launches32']} != {want}")
+            for name in launched:
+                launched[name] += res["launches"][name]
+        res = ranks[0][rules_name]
+        same = [equal_tokens(r[rules_name]["logits"], refs["tokens"])
+                for r in ranks]
+        scale32 = max(float(t.abs().max()) for t in refs["logits32"])
+        print(f"  (b) {MOE_ARCH} on {MESH_SERVE_SHAPE} under {rules_name}: "
+              f"prefill and {MESH_SERVE_GEN} steps {res['s']:.2f} s; "
+              f"launches a rank {res['launches']}; bf16 greedy tokens equal "
+              f"to one device's (teacher-forced, not held) {same} of "
+              f"{refs['tokens'].numel()} a rank; fp32 activations "
+              f"(S={MESH_TOKEN_PROMPT}, {res['s32']:.2f} s): all "
+              f"{refs['tokens32'].numel()} greedy tokens equal on every "
+              f"rank, logits max|diff| "
+              f"{max_diff(res['logits32'], refs['logits32']):.3e} (largest "
+              f"|logit| {scale32:.3e})")
+        hold_to_bf16(f"(b) {rules_name}", "prefill and decode logits",
+                     res["logits"], refs["logits"], refs["plain"],
+                     refs["wide"])
+    for kind, real, args in (("train", (a["flops"], a["coll"]),
+                              a["arg_bytes"]),
+                             ("prefill", r0["default"]["prefill"],
+                              r0["default"]["prefill_args"]),
+                             ("decode", r0["default"]["decode"],
+                              r0["default"]["decode_args"])):
+        rec = dr[kind]
+        got = (rec["cost"]["flops"], rec["collectives"]["total"])
+        print(f"  (c) {kind}: dry run FLOPs {got[0]!r}, collective bytes "
+              f"{got[1]!r}, argument bytes {rec['memory']['argument_bytes']}"
+              f"; rank 0's walk on the card {tuple(real)!r}, {args}")
+        check(tuple(got) == tuple(real), f"(c) {kind}: the dry run's "
+              f"per-rank counts {got} != the card's walk {tuple(real)}")
+        check(rec["memory"]["argument_bytes"] == args, f"(c) {kind}: "
+              f"argument bytes {rec['memory']['argument_bytes']} != {args}")
+    prod = dr["production"]
+    check(prod["status"] == "ok", f"the production pair: {prod}")
+    print(f"  (c) production pair {CLI_ARCH} x train_4k on 16 x 16 "
+          f"({dr['s'] - dr['cut_s']:.1f} s; the cut pairs "
+          f"{dr['cut_s']:.1f} s): memory {prod['memory']}; cost "
+          f"{prod['cost']}; collectives {prod['collectives']['total']!r} B; "
+          f"roofline {prod['roofline']}")
+    return launched
+
+
 def time_aggregation() -> int:
     """``--time-aggregation``: K1, K2, K3 and K4 timed at the paths'
     shapes and phase 6, nothing else.  Only the wrappers' signatures are
@@ -4850,6 +5374,8 @@ def main(argv=None) -> int:
         return time_rounds()
     if argv == ["--probe-profiler"]:
         return probe_profiler()
+    if argv == ["--mesh-dryrun"]:
+        return mesh_dryrun()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4983,11 +5509,21 @@ def main(argv=None) -> int:
         launches[name] += joint[name] + served13[name]
 
     print("== phase 14: async, faults, sampling, the service and the SPMD "
-          "round on 4 ranks")
+          "round on 4 ranks (phase 19's runs beside it)")
+    mesh19 = MeshModelPhase()
+    mesh19.start_dryrun()
+    mesh19.start()
     meshed = phase_mesh(sch, ue_data, test, {
         "async": async_run, "service": stream_service, **fault_runs})
     for name in KERNELS:
         launches[name] += meshed[name]
+
+    print("== phase 19: the transformer sharded over 4 ranks (DTensors, "
+          "gloo, one card) and the dry run, begun beside phase 14")
+    t0 = time.perf_counter()
+    for name, n in mesh19.finish().items():
+        launches[name] += n
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s after phase 14")
 
     print("== phase 15: the transformer's training half (its part (d) ran "
           "in phase 14's ranks)")

@@ -8,6 +8,11 @@ counts a launch, with its cost function (``flash_attention_cost``,
 ``hier_aggregate``): FLOPs and bytes per launch, the same reckoning as
 the bounds ``chip_smoke.py`` prints.  With no walk running, ``record``
 does nothing and costs nothing.
+
+Under ``FakeTensorMode`` (the dry run, ``repro_torch.launch.dryrun``) a
+wrapper given fake tensors launches nothing: ``fake_launch`` records the
+cost of the launch it stands for, from shapes alone, and the wrapper
+returns an (equally fake) output of the launch's shape.
 """
 from __future__ import annotations
 
@@ -16,7 +21,21 @@ from __future__ import annotations
 walks: list = []
 
 
-def record(name: str, cost, *args, **kw) -> None:
+def is_fake(t) -> bool:
+    """Whether ``t`` is a ``FakeTensor`` (no storage, nothing to launch on)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def fake_launch(name: str, cost, out, *args, **kw):
+    """Stand for one launch of kernel ``name`` on fake tensors: its cost
+    handed to the running walks, marked as launched by no wrapper, and
+    ``out`` returned."""
+    record(name, cost, *args, fake=True, **kw)
+    return out
+
+
+def record(name: str, cost, *args, fake: bool = False, **kw) -> None:
     """Hand ``cost(*args, **kw) -> (flops, nbytes)`` of one launch of
     kernel ``name`` to every running walk.  The cost is computed outside
     the walks' own counting (no dispatch mode sees its ops)."""
@@ -26,4 +45,4 @@ def record(name: str, cost, *args, **kw) -> None:
     with _disable_current_modes():
         flops, nbytes = cost(*args, **kw)
     for walk in walks:
-        walk.kernel(name, float(flops), float(nbytes))
+        walk.kernel(name, float(flops), float(nbytes), fake=fake)

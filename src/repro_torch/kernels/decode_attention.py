@@ -74,7 +74,13 @@ def decode_attention_cost(q, k_cache, v_cache, slot_pos, pos, *,
     slot of each query head; their K and V rows, q, the output (q's shape
     and dtype), ``slot_pos`` and ``pos`` moved once."""
     B, _, H, hd = q.shape
-    n = int(valid_slots(slot_pos, pos, window).sum())
+    if costs.is_fake(slot_pos):
+        # no positions to read: a ring whose every slot holds a token
+        # (a decode with its context full), the dry run's decode step
+        W = slot_pos.shape[0]
+        n = min(W, window) if window > 0 else W
+    else:
+        n = int(valid_slots(slot_pos, pos, window).sum())
     return (4 * B * H * hd * n,
             q.element_size() * (2 * B * k_cache.shape[2] * hd * n
                                 + 2 * q.numel())
@@ -230,6 +236,11 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
         _check(q, k_cache, v_cache, slot_pos, pos)
         return decode_attention_plain(q, k_cache, v_cache, slot_pos, pos,
                                       window=window)
+    if costs.is_fake(q):
+        _check(q, k_cache, v_cache, slot_pos, pos)
+        return costs.fake_launch("decode_attention", decode_attention_cost,
+                                 torch.empty_like(q), q, k_cache, v_cache,
+                                 slot_pos, pos, window=window)
     refuse_autograd("decode_attention", q, k_cache, v_cache)
     key = (q.shape, q.stride(), q.dtype, q.device, k_cache.shape,
            k_cache.stride(), k_cache.dtype, k_cache.device, v_cache.shape,

@@ -185,6 +185,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if hd % 4 or not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be a multiple of 4 in [4, "
                          f"{MAX_HEAD_DIM}], got {hd}")
+    if costs.is_fake(q):
+        return costs.fake_launch("flash_attention", flash_attention_cost,
+                                 torch.empty_like(q), q, k, v, causal=causal,
+                                 window=window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
                 t.data_ptr() % 16:

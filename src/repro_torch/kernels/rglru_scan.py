@@ -91,6 +91,10 @@ def rglru_scan(a, b):
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     refuse_autograd("rglru_scan", a, b)
+    if costs.is_fake(a):
+        return costs.fake_launch("rglru_scan", rglru_scan_cost,
+                                 torch.empty(a.shape, dtype=torch.float32,
+                                             device=a.device), a, b)
     for name, t in (("a", a), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -1,18 +1,26 @@
-"""Meshes of ``torch.distributed`` ranks: the data-sharded flat buffer's
-and the SPMD backend's.
+"""Meshes of ``torch.distributed`` ranks: the transformer's, the
+data-sharded flat buffer's and the SPMD backend's.
 
-Counterpart of the JAX package's ``repro/launch/mesh.py`` (``DATA_AXIS``,
-``MODEL_AXIS``, ``make_agg_mesh``, ``make_fl_mesh``, and the hardware
-constants: the H100's where the reference has a TPU v5e's).  A JAX mesh is one
-program over many devices (``shard_map``).  Here a mesh is a set of
-``torch.distributed`` ranks, one process each, and every sharded function
-is called by every rank with its LOCAL slab (multi-controller):
+Counterpart of the JAX package's ``repro/launch/mesh.py`` (the axis names,
+``make_production_mesh``, ``make_host_mesh``, ``make_agg_mesh``,
+``make_fl_mesh``, ``mesh_axis_names``, ``data_axes``, ``num_chips``, and
+the hardware constants: the H100's where the reference has a TPU v5e's).
+A JAX mesh is one program over many devices (``shard_map``).  Here a
+mesh is a set of ``torch.distributed`` ranks, one process each, and every
+sharded function is called by every rank with its LOCAL slab
+(multi-controller):
 
 * ``make_agg_mesh``: each rank holds one slab of the flat ``(N, F_total)``
   buffer (whole edges' UE rows over ``data``, a column slab over
   ``model``);
 * ``make_fl_mesh``: each rank is one UE of an ('edge', 'ue') grid
-  (``repro_torch.fl.spmd``).
+  (``repro_torch.fl.spmd``);
+* ``make_host_mesh`` and ``make_production_mesh``: a
+  ``torch.distributed.DeviceMesh`` over the ranks, on which the
+  transformer's parameters and batches are DTensors
+  (``repro_torch.parallel.sharding``).  The production mesh's 256 or 512
+  ranks exist only as a ``fake`` process group in the dry run
+  (``repro_torch.launch.dryrun``).
 
 ``run_ranks`` spawns such a set of ranks on one host (tests,
 ``chip_smoke.py``).  Nothing here touches the network: the ranks meet
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import queue
@@ -38,10 +47,18 @@ import torch.multiprocessing as mp
 
 from repro_torch.device import resolve_device
 
-# Axis names of the flat (N, F_total) buffer's mesh, as in the reference:
-# UE rows shard over 'data', feature columns over 'model'.
+# Canonical axis names, as in the reference.  'pod' is the cross-pod axis;
+# 'data' is the in-pod data/FSDP axis; 'model' is the tensor-parallel axis.
+POD_AXIS = "pod"
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+# Logical axis names of the flat (N, F_total) aggregation buffer
+# (repro_torch.fl.flatten): 'ue' is the leading client axis (maps onto
+# DATA_AXIS), 'feat' the flattened feature axis (maps onto MODEL_AXIS).  The
+# rules table in repro_torch.parallel.sharding binds them to mesh axes.
+UE_AXIS = "ue"
+FEAT_AXIS = "feat"
 
 # H100 SXM5 constants (per GPU), the counterparts of the reference's TPU
 # v5e constants: the roofline (``repro_torch.roofline``), its delay-model
@@ -64,6 +81,66 @@ IB_BW = 50e9                      # NDR InfiniBand, one 400 Gb/s
 #                                   ConnectX-7 a GPU in a DGX H100: the
 #                                   cloud link, where the reference has
 #                                   DCN_BW
+
+
+def _device_mesh(shape: tuple, axes: tuple, device):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh: 16x16 = 256 ranks per pod; 2 pods = 512, axes
+    ('data', 'model') or ('pod', 'data', 'model'), over the first ranks of
+    the default process group (the dry run starts a ``fake`` group of
+    them).  ``device``: the ranks' device type (``None``: the
+    card; a ``fake`` group needs none)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = (POD_AXIS, DATA_AXIS, MODEL_AXIS) if multi_pod else (DATA_AXIS,
+                                                                MODEL_AXIS)
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < n:
+        raise RuntimeError(
+            f"need {n} devices for mesh {shape}, have {have} — the dry-run "
+            "must start a fake process group of 512 ranks before building "
+            "the mesh")
+    dev = torch.device(device or "cuda")
+    if have == n:
+        return _device_mesh(shape, axes, dev)
+    # more ranks than the mesh needs: the first prod(shape), as the
+    # reference takes the first devices
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, device=None):
+    """A ('data', 'model') ``DeviceMesh`` over the ranks of the initialised
+    default process group, whose world size must be ``data * model``; rank
+    ``r`` sits at ``(r // model, r % model)``.  ``device=None`` is the card
+    (raises without one); ``"cpu"`` for the CPU."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs an initialised default "
+                           "process group (torch.distributed)")
+    if dist.get_world_size() != data * model:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} "
+                         f"ranks, the process group has "
+                         f"{dist.get_world_size()}")
+    return _device_mesh((data, model), (DATA_AXIS, MODEL_AXIS),
+                        resolve_device(device))
+
+
+def mesh_axis_names(mesh) -> tuple:
+    return tuple(mesh.mesh_dim_names)
+
+
+def data_axes(mesh) -> tuple:
+    """Axes over which the batch is sharded."""
+    return tuple(a for a in mesh.mesh_dim_names if a in (POD_AXIS, DATA_AXIS))
+
+
+def num_chips(mesh) -> int:
+    return int(mesh.size())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +290,62 @@ def _rank_device(device, rank: int) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     return dev
+
+
+#: The functional collectives ``StagedCollectives`` stages.
+_STAGED = {"all_reduce", "all_reduce_coalesced", "all_gather_into_tensor",
+           "all_gather_into_tensor_coalesced", "reduce_scatter_tensor",
+           "reduce_scatter_tensor_coalesced", "all_to_all_single",
+           "broadcast"}
+
+
+class StagedCollectives:
+    """A context under which every functional collective (the
+    ``_c10d_functional`` ops: DTensor's redistributions and
+    ``parallel.sharding``'s ``psum``, ``all_gather``, ``all_to_all``) on a
+    CUDA tensor runs on a copy in pinned host memory and completes before
+    its result is copied back to the card.  Gloo, the one backend that
+    lets several ranks share a card, crashes the process on some
+    asynchronous collectives of CUDA tensors (an all-gather along a dim
+    other than 0, a DTensor's gather over two mesh axes); on host tensors
+    it runs them all.  The compute stays on the card."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return _staged(func, types, args, kwargs or {})
+
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _staged(func, types, args, kwargs):
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves, tree_map
+    leaves = tree_leaves((args, kwargs))
+    if any(isinstance(t, DTensor) for t in leaves):
+        return NotImplemented                  # the DTensor's local ops next
+    ns, _, name = func.name().partition("::")
+    dev = next((t.device for t in leaves if isinstance(t, torch.Tensor)
+                and t.device.type == "cuda"), None)
+    if ns != "_c10d_functional" or name not in _STAGED or dev is None:
+        return func(*args, **kwargs)
+
+    def host(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return h.copy_(t)
+    out = func(*tree_map(host, args), **tree_map(host, kwargs))
+    wait = torch.ops._c10d_functional.wait_tensor
+    return tree_map(lambda t: wait(t).to(dev) if isinstance(t, torch.Tensor)
+                    else t, out)
 
 
 #: A rank's start-up in ``run_ranks``, as ``time.time()`` stamps: its

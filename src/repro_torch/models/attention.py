@@ -26,6 +26,16 @@ any impl, as in the reference: the dense formula for one query row,
 Products of two dtypes compute in the promoted one (``layers.einsum``), as
 ``jnp`` does; a decode cache holds the state dtype, and the kernel route
 casts q to it (the kernels take one dtype).
+
+On a mesh (DTensor activations, ``Model(mesh=)``) the projections run on
+DTensors, and the score/softmax/value contraction of every impl, with the
+decode cache's write, runs on each rank's LOCAL heads and batch rows
+(``_local_heads``, through ``sharding.shard_map``): the heads shard over
+'model' where they divide, the batch keeps its data sharding, everything
+else is gathered.  Where the query heads divide the 'model' axis and the
+KV heads do not, but the axis is a multiple of them (GQA), each rank
+attends with the one KV head its query heads share.  So under
+``impl="kernel"`` K5 and K7 run on every rank on its local heads.
 """
 from __future__ import annotations
 
@@ -36,8 +46,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.layers import (Spec, apply_rope, einsum, rms_norm,
-                                       rope_freqs)
+from repro_torch.models.layers import (Spec, apply_rope, einsum, matmul,
+                                       promoted, rms_norm, rope_freqs)
 
 NEG_INF = -2.0e38
 EMPTY_SLOT = -(10 ** 9)          # slot_pos of a ring slot never written
@@ -125,16 +135,102 @@ def xla_flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``.  On a mesh, with the heads
+    sharded, one product over the flat (heads x head_dim) dim, so each
+    rank computes its own heads (DTensor's einsum would gather them);
+    with the heads not sharded (8 KV heads on a 16-way 'model' axis),
+    each rank's batch rows against the whole weight, so no flat dim is
+    ever split unevenly (DTensor may shard it evenly but cannot then
+    unflatten it)."""
+    if not _is_dtensor(x):
+        return einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.parallel import sharding as shd
+    mesh = x.device_mesh
+    if all(not (isinstance(p, Shard) and p.dim == 1) for p in w.placements):
+        xpl = shd.batch_placements(x)
+        rep = tuple(Replicate() for _ in xpl)
+        return shd.shard_map(lambda x_, w_: einsum("bsd,dhk->bshk", x_, w_),
+                             mesh, (xpl, rep), xpl)(x, w)
+    return matmul(x, w.flatten(1)).unflatten(-1, tuple(w.shape[1:]))
+
+
+def _out_proj(o, wo):
+    """``einsum("bshk,hkd->bsd", o, wo)``, on a mesh a product over the
+    flat (heads x head_dim) dim: each rank's heads' product summed over
+    'model' (``sharding.row_parallel``, whose backward too is each rank's
+    own heads' products), then settled (``sharding.settle``)."""
+    if not _is_dtensor(o):
+        return einsum("bshk,hkd->bsd", o, wo)
+    from repro_torch.parallel.sharding import row_parallel
+    return _settle(row_parallel(*promoted(o.flatten(2), wo.flatten(0, 1))))
+
+
 def _project_qkv(cfg, p, x, positions, inv_freqs):
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, inv_freqs)
     k = apply_rope(k, positions, inv_freqs)
     return q, k, v
+
+
+def _local_heads(fn, q, k, v, *rest, rest_kv=(), out_kv=0):
+    """``fn(q, k, v, kv_slice, *rest_kv, *rest)`` on each rank's local
+    heads (see the module's docstring): q (B, S, H, hd), k and v and the
+    ``rest_kv`` tensors (B, ., K, hd) DTensors; ``rest`` replicated
+    DTensors (slot positions, the position).  ``kv_slice(t)`` takes a
+    local (B, ., K, hd) tensor to the KV heads of the rank's query heads.
+    ``fn`` returns the attention output (B, S, H, hd), then ``out_kv``
+    tensors laid out as k (a decode's new cache), then tensors laid out
+    as ``rest``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import MODEL_AXIS
+    from repro_torch.parallel import sharding as shd
+    mesh = q.device_mesh
+    # a plain tensor (an encoder-decoder's fresh self-attention ring) is
+    # the same on every rank: replicated
+    k, v, *rest_kv = (shd.as_replicated(t, mesh) for t in (k, v) + tuple(
+        rest_kv))
+    H, K = q.shape[2], k.shape[2]
+    qpl, kpl, per_kv = [], [], 1
+    for j, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(j)
+        if any(t.placements[j] == Shard(0) for t in (q,) + tuple(rest_kv)):
+            # the batch's axes (a decode's cache keeps its own)
+            qpl.append(Shard(0))
+            kpl.append(Shard(0))
+        elif (name == MODEL_AXIS and n > 1 and H % n == 0
+              and (K % n == 0 or n % K == 0)):
+            qpl.append(Shard(2))
+            if K % n == 0:
+                kpl.append(Shard(2))
+            else:
+                kpl.append(Replicate())
+                per_kv = n // K
+        else:
+            qpl.append(Replicate())
+            kpl.append(Replicate())
+    rpl = tuple(Replicate() for _ in qpl)
+    qpl, kpl = tuple(qpl), tuple(kpl)
+
+    def kv_slice(t):
+        if per_kv == 1:
+            return t
+        i = mesh.get_local_rank(MODEL_AXIS) // per_kv
+        return t[:, :, i:i + 1]
+
+    def body(q_, k_, v_, *more):
+        return fn(q_, k_, v_, kv_slice, *more)
+
+    ins = (qpl, kpl, kpl) + (kpl,) * len(rest_kv) + (rpl,) * len(rest)
+    outs = (qpl,) + (kpl,) * out_kv + (rpl,) * (len(rest) if out_kv else 0)
+    return shd.shard_map(body, mesh, ins, outs if len(outs) > 1 else qpl)(
+        q, k, v, *rest_kv, *rest)
 
 
 def _attend(q, k, v, positions, causal, window, impl):
@@ -149,14 +245,43 @@ def _attend(q, k, v, positions, causal, window, impl):
                      f"'chunked', got {impl!r}")
 
 
-def self_attention(cfg, p, x, *, causal=True, window=0, impl="kernel"):
+def _full_attention(q, k, v, causal, window, impl, constrain):
+    """The score/softmax/value contraction of a full sequence, on the
+    local heads on a mesh (after ``constrain``-ing q to its logical
+    axes, as the reference does)."""
+    S = q.shape[1]
+    if constrain is not None:
+        q = constrain(q, ("batch", "seq", "act_heads", "head_dim"))
+    if not _is_dtensor(q):
+        positions = torch.arange(S, dtype=torch.int32, device=q.device)
+        return _attend(q, k, v, positions, causal, window, impl)
+
+    def local(q_, k_, v_, kv_slice):
+        positions = torch.arange(S, dtype=torch.int32, device=q_.device)
+        return _attend(q_, kv_slice(k_), kv_slice(v_), positions, causal,
+                       window, impl)
+    return _local_heads(local, q, k, v)
+
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.parallel.sharding import is_dtensor
+    return is_dtensor(x)
+
+
+def _settle(x):
+    from repro_torch.parallel.sharding import settle
+    return settle(x)
+
+
+def self_attention(cfg, p, x, *, causal=True, window=0, impl="kernel",
+                   constrain=None):
     """Full-sequence self attention (train / prefill)."""
     S = x.shape[1]
     inv_freqs = rope_freqs(cfg, cfg.resolved_head_dim, x.device)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions, inv_freqs)
-    o = _attend(q, k, v, positions, causal, window, impl)
-    return einsum("bshk,hkd->bsd", o, p["wo"])
+    o = _full_attention(q, k, v, causal, window, impl, constrain)
+    return _out_proj(o, p["wo"])
 
 
 def cross_attention_specs(cfg):
@@ -168,21 +293,23 @@ def cross_attention(cfg, p, x, kv_k, kv_v, impl="xla_flash"):
     (B, Se, K, hd), bidirectional.  No kernel under any impl, as in the
     reference: the dense formula (``naive_attention``) for one query row
     or ``impl="naive"``, else ``xla_flash_attention``."""
-    Sq = x.shape[1]
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    qp = torch.arange(Sq, dtype=torch.int32, device=x.device)
-    kp = torch.arange(kv_k.shape[1], dtype=torch.int32, device=x.device)
-    if impl == "naive" or Sq == 1:
-        o = naive_attention(q, kv_k, kv_v, qp, kp, causal=False)
-    else:
-        o = xla_flash_attention(q, kv_k, kv_v, qp, kp, causal=False)
-    return einsum("bshk,hkd->bsd", o, p["wo"])
+    Sq, Se = x.shape[1], kv_k.shape[1]
+    q = _proj(x, p["wq"])
+
+    def attend(q_, k_, v_, kv_slice=lambda t: t):
+        qp = torch.arange(Sq, dtype=torch.int32, device=q_.device)
+        kp = torch.arange(Se, dtype=torch.int32, device=q_.device)
+        fn = (naive_attention if impl == "naive" or Sq == 1
+              else xla_flash_attention)
+        return fn(q_, kv_slice(k_), kv_slice(v_), qp, kp, causal=False)
+    o = (_local_heads(attend, q, kv_k, kv_v) if _is_dtensor(q)
+         else attend(q, kv_k, kv_v))
+    return _out_proj(o, p["wo"])
 
 
 def encode_kv(cfg, p, enc_out):
     """Cross-attention K/V of the encoder's output, (B, Se, K, hd) each."""
-    return (einsum("bsd,dhk->bshk", enc_out, p["wk"]),
-            einsum("bsd,dhk->bshk", enc_out, p["wv"]))
+    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
 
 
 # --------------------------------------------------------------------------
@@ -210,49 +337,71 @@ def decode_self_attention(cfg, p, x, cache, *, window=0, impl="kernel",
     """x: (B,1,D).  Insert token at cache['pos'], attend over valid slots.
     Returns a new cache; the old one is left as it was, unless
     ``in_place``: then the token is written into ``cache``'s own k, v and
-    slot_pos (a copy that the caller made, as the scanned stack does)."""
-    B = x.shape[0]
-    W = cache["k"].shape[1]
+    slot_pos (a copy that the caller made, as the scanned stack does).  On
+    a mesh the write and the attention run on the local heads and a new
+    cache is returned (``in_place`` is not taken)."""
     hd = cfg.resolved_head_dim
     inv_freqs = rope_freqs(cfg, hd, x.device)
     pos = cache["pos"]
     positions = pos.reshape(1)
     q, k, v = _project_qkv(cfg, p, x, positions, inv_freqs)
+    if _is_dtensor(q):
+        def local(q_, k_, v_, kv_slice, ck, cv, slot_pos, pos_):
+            return _decode_local(q_, k_, v_, ck, cv, slot_pos, pos_, window,
+                                 impl, False, kv_slice)
+        o, new_k, new_v, new_slot_pos, _ = _local_heads(
+            local, q, k, v, cache["slot_pos"], pos,
+            rest_kv=(cache["k"], cache["v"]), out_kv=2)
+    else:
+        o, new_k, new_v, new_slot_pos, _ = _decode_local(
+            q, k, v, cache["k"], cache["v"], cache["slot_pos"], pos, window,
+            impl, in_place, lambda t: t)
+    out = _out_proj(o.to(x.dtype), p["wo"])
+    new_cache = {"k": new_k, "v": new_v, "slot_pos": new_slot_pos,
+                 "pos": pos + 1}
+    return out, new_cache
+
+
+def _decode_local(q, k, v, cache_k, cache_v, slot_pos, pos, window, impl,
+                  in_place, kv_slice):
+    """One token's cache write and attention on plain tensors: q (B,1,H,hd),
+    k, v (B,1,K,hd) into the ring (B,W,K,hd); attention over the KV heads
+    ``kv_slice`` keeps.  Returns (o, new_k, new_v, new_slot_pos) (and, as a
+    ``_local_heads`` body, the position as it came)."""
+    B, _, H, hd = q.shape
+    W = cache_k.shape[1]
+    positions = pos.reshape(1)
     slot = torch.remainder(pos, W).reshape(1).long()
     write = torch.Tensor.index_copy_ if in_place else torch.Tensor.index_copy
-    new_k = write(cache["k"], 1, slot, k.to(cache["k"].dtype))
-    new_v = write(cache["v"], 1, slot, v.to(cache["v"].dtype))
-    new_slot_pos = write(cache["slot_pos"], 0, slot, positions)
-
+    new_k = write(cache_k, 1, slot, k.to(cache_k.dtype))
+    new_v = write(cache_v, 1, slot, v.to(cache_v.dtype))
+    new_slot_pos = write(slot_pos, 0, slot, positions)
+    ak, av = kv_slice(new_k), kv_slice(new_v)
     if impl == "kernel":
-        o = da.decode_attention(q.to(new_k.dtype), new_k, new_v,
-                                new_slot_pos, pos, window=window)
+        o = da.decode_attention(q.to(ak.dtype), ak, av, new_slot_pos, pos,
+                                window=window)
     elif impl in ("naive", "xla_flash", "chunked"):
-        H = cfg.num_heads
-        K = cfg.num_kv_heads
+        K = ak.shape[2]
         g = H // K
         qg = q.reshape(B, 1, K, g, hd) * (1.0 / math.sqrt(hd))
-        s = einsum("bqkgh,bskh->bkgqs", qg, new_k).float()
+        s = einsum("bqkgh,bskh->bkgqs", qg, ak).float()
         # empty slots hold slot_pos = -1e9 ("never written") — exclude them
         valid = (new_slot_pos >= 0) & (new_slot_pos <= pos)
         if window > 0:
             valid &= (pos - new_slot_pos) < window
         s = s.masked_fill(~valid, NEG_INF)
         pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskh->bqkgh", pr.to(new_v.dtype),
-                         new_v).reshape(B, 1, H, hd)
+        o = torch.einsum("bkgqs,bskh->bqkgh", pr.to(av.dtype),
+                         av).reshape(B, 1, H, hd)
     else:
         raise ValueError(f"impl must be 'kernel', 'xla_flash', 'naive' or "
                          f"'chunked', got {impl!r}")
-    out = einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
-    new_cache = {"k": new_k, "v": new_v, "slot_pos": new_slot_pos,
-                 "pos": pos + 1}
-    return out, new_cache
+    return o, new_k, new_v, new_slot_pos, pos
 
 
 def self_attention_prefill(cfg, p, x, *, causal=True, window=0,
                            impl="kernel", cache_len=None,
-                           dtype=torch.float32):
+                           dtype=torch.float32, constrain=None):
     """Full-sequence self-attention that ALSO returns the ring KV cache
     (k and v of ``dtype``) positioned for decode continuation (slot t%W
     holds token t)."""
@@ -260,16 +409,32 @@ def self_attention_prefill(cfg, p, x, *, causal=True, window=0,
     inv_freqs = rope_freqs(cfg, cfg.resolved_head_dim, x.device)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions, inv_freqs)
-    o = _attend(q, k, v, positions, causal, window, impl)
-    out = einsum("bshk,hkd->bsd", o, p["wo"])
+    o = _full_attention(q, k, v, causal, window, impl, constrain)
+    out = _out_proj(o, p["wo"])
 
     W = min(window, cache_len or S) if window > 0 else (cache_len or S)
     keep = min(W, S)
-    kept_pos = positions[S - keep:]
-    slots = torch.remainder(kept_pos, W).long()
-    cache = init_kv_cache(cfg, B, W, device=x.device, dtype=dtype)
-    cache["k"][:, slots] = k[:, S - keep:].to(dtype)
-    cache["v"][:, slots] = v[:, S - keep:].to(dtype)
-    cache["slot_pos"][slots] = kept_pos
-    cache["pos"].fill_(S)
+    # the last `keep` tokens, then the empty slots, rolled so that token t
+    # sits in slot t % W (no write in place, so DTensors go through)
+    shift = (S - keep) % W
+
+    def roll(t, dim):
+        # torch.roll as a cat of two slices (which every DTensor version
+        # shards)
+        if shift == 0:
+            return t
+        return torch.cat([t.narrow(dim, W - shift, shift),
+                          t.narrow(dim, 0, W - shift)], dim)
+
+    def ring(t):
+        t = t[:, S - keep:].to(dtype)
+        pad = torch.zeros_like(t[:, :1]).expand(-1, W - keep, -1, -1)
+        return roll(torch.cat([t, pad], 1), 1)
+
+    slot_pos = torch.full((W,), EMPTY_SLOT, dtype=torch.int32,
+                          device=x.device)
+    slot_pos[:keep] = positions[S - keep:]
+    cache = {"k": ring(k), "v": ring(v),
+             "slot_pos": roll(slot_pos, 0),
+             "pos": torch.full((), S, dtype=torch.int32, device=x.device)}
     return out, cache

@@ -7,8 +7,8 @@ package's layout, so its parameters load unchanged
   specs(cfg)  -> tree of Spec (shape + logical axes + init)
   apply(...)  -> forward
 and ``init_tree`` turns a spec tree into parameters (``param_shapes`` into
-shape-and-dtype stand-ins).  The logical axes are kept for the layout's
-sake; the port runs on one card and shards nothing.
+shape-and-dtype stand-ins).  The logical axes shard the parameters over a
+mesh (``repro_torch.parallel.sharding``, ``Model(mesh=, rules=)``).
 
 Products of two dtypes (a bf16 activation with fp32 weights, or the
 reverse) go through ``matmul`` and ``einsum``: ``jnp`` promotes their
@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import row_parallel, settle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,13 +199,15 @@ def mlp_specs(cfg, d_ff: Optional[int] = None):
     }
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, constrain=None):
     a = act_fn(cfg.act)
     if "wi_gate" in p:
         h = a(matmul(x, p["wi_gate"])) * matmul(x, p["wi_up"])
     else:
         h = a(matmul(x, p["wi"]))
-    return matmul(h, p["wo"])
+    if constrain is not None:
+        h = constrain(h, ("batch", "seq", "mlp"))
+    return settle(row_parallel(*promoted(h, p["wo"])))
 
 
 # --------------------------------------------------------------------------

@@ -29,6 +29,17 @@ embedding, the frames and patches, and the unembedding are cast to
 state's k, v and conv history are bf16 under bf16 activations, else fp32.
 Prefill sizes the caches of global-attention layers for ``decode_margin``
 more slots (0: one more prompt length, the reference's default).
+
+``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with the reference's
+axis names, ``launch.mesh.make_host_mesh``) and ``rules`` (a rule set of
+``repro_torch.parallel.sharding``) shard the model as the reference's
+``Model(mesh=, rules=)`` does: the parameters and the batch are DTensors
+(``sharding.distribute_tree``, or the ``*_shardings`` of
+``launch/steps.py``), every op runs on them, and the blocks constrain
+their activations at the reference's points (``_constrain``); the MoE and
+attention run their local parts under ``shard_map``.  The outputs are
+DTensors (``sharding.full`` gathers one).  With ``mesh=None`` nothing
+changes.
 ``remat=True`` (the reference's default) recomputes each layer's
 activations in the backward (``torch.utils.checkpoint``).
 
@@ -58,6 +69,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import attention as attn_mod
+from repro_torch.parallel import sharding as shd
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, embed_specs, embed_tokens, init_tree, map_specs,
     matmul, norm_specs, param_shapes, sinusoidal_positions, spec_leaves,
@@ -91,7 +103,9 @@ def chunked_cross_entropy(hidden, w_unembed, targets, mask=None, chunk=512):
     for i in range(0, n * chunk, chunk):
         h, t, m = (hidden[:, i:i + chunk], targets[:, i:i + chunk],
                    mask[:, i:i + chunk].to(torch.float32))
-        logits = matmul(h, w_unembed).to(torch.float32)
+        # on a mesh the vocab dim gathered (DTensor's vocab-parallel gather
+        # is not taken)
+        logits = shd.unshard(matmul(h, w_unembed).to(torch.float32), -1)
         lse = torch.logsumexp(logits, -1)
         ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
         loss = loss + torch.sum((lse - ll) * m)
@@ -100,13 +114,16 @@ def chunked_cross_entropy(hidden, w_unembed, targets, mask=None, chunk=512):
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, *, impl: str = "kernel",
-                 param_dtype=torch.float32, act_dtype=torch.float32,
-                 remat: bool = True, decode_margin: int = 0, device=None):
+    def __init__(self, cfg: ModelConfig, *, mesh=None, rules=None,
+                 impl: str = "kernel", param_dtype=torch.float32,
+                 act_dtype=torch.float32, remat: bool = True,
+                 decode_margin: int = 0, device=None):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         tfm.check_config(cfg)
         self.cfg = cfg
+        self.mesh = mesh
+        self.rules = rules
         self.impl = impl
         self.param_dtype = param_dtype
         self.act_dtype = act_dtype
@@ -114,7 +131,10 @@ class Model:
         # extra KV-cache slots reserved past the prompt by prefill()
         # (0 -> reserve one prompt-length's worth)
         self.decode_margin = decode_margin
-        self.device = resolve_device(device)
+        # on a mesh, the ranks' device type (a fake process group's mesh
+        # may name the card where there is none)
+        self.device = (torch.device(mesh.device_type) if mesh is not None
+                       and device is None else resolve_device(device))
 
     # -- params ------------------------------------------------------------
 
@@ -150,19 +170,40 @@ class Model:
 
     # -- forward -----------------------------------------------------------
 
+    def _constrain(self):
+        """The activation constraint of the mesh and rules (``None`` off a
+        mesh), as the reference's."""
+        if self.mesh is None:
+            return None
+        mesh, rules = self.mesh, self.rules
+        return lambda x, axes: shd.constrain(x, mesh, axes, rules)
+
+    def _tensor(self, x):
+        """A batch leaf on the model's device (a DTensor as it is)."""
+        return x if shd.is_dtensor(x) else torch.as_tensor(
+            x, device=self.device)
+
     def _input(self, batch, key):
         """``batch[key]`` (frames or patches) on the model's device, cast to
         ``act_dtype``."""
-        return torch.as_tensor(batch[key], device=self.device).to(
-            self.act_dtype)
+        return self._tensor(batch[key]).to(self.act_dtype)
 
     def _embed(self, params, tokens):
-        tokens = torch.as_tensor(tokens, device=self.device).long()
+        tokens = self._tensor(tokens).long()
+        if self.mesh is not None:
+            return shd.embed_lookup(params["embedding"], tokens).to(
+                self.act_dtype)
         return embed_tokens(params, tokens).to(self.act_dtype)
 
     def _logits(self, params, x):
         x = apply_norm(self.cfg, params["final_norm"], x)
-        return matmul(x, unembed_matrix(self.cfg, params).to(self.act_dtype))
+        return matmul(x, self._unembed(params))
+
+    def _unembed(self, params):
+        """The unembedding matrix in ``act_dtype`` (on a mesh gathered over
+        the data axes, as FSDP gathers it)."""
+        return shd.fsdp_gather(unembed_matrix(self.cfg, params)).to(
+            self.act_dtype)
 
     def _prefix(self, params, batch):
         """The backbone's input: the token embeddings, after the patch
@@ -170,24 +211,33 @@ class Model:
         x = self._embed(params, batch["tokens"])
         if self.cfg.frontend == "vision":
             x = torch.cat([self._input(batch, "patches"), x], 1)
+        con = self._constrain()
+        if con is not None:
+            x = con(x, ("batch", "seq", "act_embed"))
         return x
+
+    def _mesh_kw(self):
+        return dict(mesh=self.mesh, rules=self.rules)
 
     def _hidden_train(self, params, batch):
         """Returns (hidden_for_loss, targets, aux)."""
         cfg = self.cfg
-        targets = torch.as_tensor(batch["targets"], device=self.device)
+        con = self._constrain()
+        targets = self._tensor(batch["targets"])
         if cfg.encoder_decoder:
             enc = tfm.apply_encoder(cfg, params, self._input(batch, "frames"),
-                                    impl=self.impl, remat=self.remat)
+                                    impl=self.impl, remat=self.remat,
+                                    constrain=con)
             tok = self._embed(params, batch["tokens"])
             tok = tok + sinusoidal_positions(
                 tok.shape[1], cfg.d_model, tok.device).to(tok.dtype)
             h = tfm.apply_decoder(cfg, params, tok, enc, impl=self.impl,
-                                  remat=self.remat)
+                                  remat=self.remat, constrain=con)
             h = apply_norm(cfg, params["final_norm"], h)
             return h, targets, torch.zeros((), device=self.device)
         x, aux = tfm.apply_stack(cfg, params, self._prefix(params, batch),
-                                 impl=self.impl, remat=self.remat)
+                                 impl=self.impl, remat=self.remat,
+                                 constrain=con, **self._mesh_kw())
         x = apply_norm(cfg, params["final_norm"], x)
         if cfg.frontend == "vision":
             # the rows of the last patch and every token but the last, as
@@ -200,8 +250,12 @@ class Model:
         """Mean next-token cross entropy plus the MoE aux loss (the layers'
         load-balance and z losses summed; 0 without experts).  Returns
         (ce + aux, {"ce": ce, "aux": aux}), 0-d float32 tensors."""
+        with shd.on_mesh(self.mesh):
+            return self._loss(params, batch)
+
+    def _loss(self, params, batch):
         h, targets, aux = self._hidden_train(params, batch)
-        w = unembed_matrix(self.cfg, params).to(self.act_dtype)
+        w = self._unembed(params)
         loss_sum, count = chunked_cross_entropy(h, w, targets,
                                                 chunk=self.cfg.loss_chunk)
         loss = loss_sum / torch.clamp_min(count, 1.0)
@@ -211,20 +265,26 @@ class Model:
         """Full-prompt forward; returns (last_logits (B,1,V), decode_state).
         An encoder-decoder's prefill encodes the frames and decodes the
         prompt's first token (the reference feeds it no more)."""
+        with shd.on_mesh(self.mesh):
+            return self._prefill(params, batch)
+
+    def _prefill(self, params, batch):
         cfg = self.cfg
         if cfg.encoder_decoder:
             frames = self._input(batch, "frames")
             enc = tfm.apply_encoder(cfg, params, frames, impl=self.impl,
-                                    remat=False)
-            tokens = torch.as_tensor(batch["tokens"], device=self.device)
+                                    remat=False, constrain=self._constrain())
+            tokens = self._tensor(batch["tokens"])
             state = self._encdec_state(params, enc, tokens.shape[0],
                                        frames.shape[1] // cfg.decoder_len_ratio)
-            return self.decode_step(params, state, tokens[:, :1])
+            return self._decode_step(params, state, tokens[:, :1])
         x = self._prefix(params, batch)
         S = x.shape[1]
         x, state = tfm.prefill_stack(cfg, params, x,
                                      cache_len=S + (self.decode_margin or S),
-                                     impl=self.impl, dtype=self._state_dtype)
+                                     impl=self.impl, dtype=self._state_dtype,
+                                     constrain=self._constrain(),
+                                     **self._mesh_kw())
         return self._logits(params, x[:, -1:]), state
 
     # -- decode ------------------------------------------------------------
@@ -234,23 +294,43 @@ class Model:
         return (torch.bfloat16 if self.act_dtype == torch.bfloat16
                 else torch.float32)
 
-    def init_decode_state(self, batch_size: int, max_len: int):
+    def init_decode_state(self, batch_size: int, max_len: int, device=None):
+        """An empty decode state on ``device`` (``None``: the model's)."""
         cfg, dt = self.cfg, self._state_dtype
+        dev = device or self.device
         if cfg.encoder_decoder:
             dec_len = max(max_len // cfg.decoder_len_ratio, 8)
             shape = (batch_size, max_len, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
-            cross = [{"k": torch.zeros(shape, dtype=dt, device=self.device),
-                      "v": torch.zeros(shape, dtype=dt, device=self.device)}
+            cross = [{"k": torch.zeros(shape, dtype=dt, device=dev),
+                      "v": torch.zeros(shape, dtype=dt, device=dev)}
                      for _ in range(cfg.num_layers)]
-            return {"cross": cross, "self": self._self_state(batch_size,
-                                                             dec_len)}
-        return tfm.init_stack_state(cfg, batch_size, max_len,
-                                    device=self.device, dtype=dt)
+            return {"cross": cross, "self": self._self_state(
+                batch_size, dec_len, dev)}
+        return tfm.init_stack_state(cfg, batch_size, max_len, device=dev,
+                                    dtype=dt)
 
-    def _self_state(self, batch: int, dec_len: int) -> list:
+    def decode_state_axes(self):
+        """The logical axes of the decode state (the tree of
+        ``init_decode_state``)."""
+        cfg = self.cfg
+        if cfg.encoder_decoder:
+            kv_ax = {"k": ("batch", "seq", "kv_heads", "head_dim"),
+                     "v": ("batch", "seq", "kv_heads", "head_dim")}
+            self_ax = tfm.layer_state_axes(cfg, "attn")
+            return {"cross": [kv_ax] * cfg.num_layers,
+                    "self": [self_ax] * cfg.num_layers}
+        return tfm.stack_state_axes(cfg)
+
+    def decode_state_specs(self, shape: ShapeConfig):
+        """``meta`` tensors shaped as the decode state of ``shape``."""
+        return self.init_decode_state(shape.global_batch, shape.seq_len,
+                                      device="meta")
+
+    def _self_state(self, batch: int, dec_len: int, device=None) -> list:
         return [tfm.init_layer_state(self.cfg, "attn", batch, dec_len,
-                                     self.device, self._state_dtype)
+                                     device or self.device,
+                                     self._state_dtype)
                 for _ in range(self.cfg.num_layers)]
 
     def _encdec_state(self, params, enc_out, batch: int, dec_len: int):
@@ -266,11 +346,18 @@ class Model:
 
     def decode_step(self, params, state, tokens):
         """tokens: (B,1) -> (logits (B,1,V), new_state)."""
+        with shd.on_mesh(self.mesh):
+            return self._decode_step(params, state, tokens)
+
+    def _decode_step(self, params, state, tokens):
         cfg = self.cfg
         x = self._embed(params, tokens)
+        con = self._constrain()
+        if con is not None:
+            x = con(x, ("batch", "seq", "act_embed"))
         if not cfg.encoder_decoder:
             x, state = tfm.decode_stack(cfg, params, x, state,
-                                        impl=self.impl)
+                                        impl=self.impl, **self._mesh_kw())
             return self._logits(params, x), state
         # the token's position from the device (no host read)
         x = x + _sinusoid_at(state["self"][0]["pos"], cfg.d_model).to(x.dtype)
@@ -332,10 +419,9 @@ def _sinusoid_at(pos, d: int):
     computed on its device."""
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
     ang = pos.float() / torch.pow(10000.0, dim / d)
-    pe = torch.zeros((d,), dtype=torch.float32, device=pos.device)
-    pe[0::2] = torch.sin(ang)
-    pe[1::2] = torch.cos(ang[: (d + 1) // 2])
-    return pe
+    # sines at the even entries, cosines at the odd (out of place, so a
+    # DTensor position goes through)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], -1).reshape(-1)[:d]
 
 
 def build_model(cfg: ModelConfig, **kw) -> Model:

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing, capacity dispatch, shared experts.
-Ported from the JAX package's ``repro/models/moe.py`` for one device
-(``apply_moe(mesh=None)``).
+Ported from the JAX package's ``repro/models/moe.py``, on one device
+(``apply_moe(mesh=None)``) and on a mesh.
 
 Tokens are flattened batch-major, ``(B*S, D)``; each picks its top-k
 experts by router probability, and the picks are dealt, token after token
@@ -15,17 +15,39 @@ Every op is out of place and has a batching rule (the one-hot is a
 comparison with ``arange(E)``), so ``torch.func.vmap(grad)`` of a loss
 through it goes through (``launch/train.py --mode hfl``).
 
-With a mesh the reference shards the experts' hidden dim or the experts
-themselves (``shard_map``, ``psum``, ``all_to_all``); that is ROADMAP
-Queue 1 item 13c, and ``apply_moe`` raises ``NotImplementedError`` for it.
+On a mesh (DTensor activations and parameters) the routed experts run
+under ``sharding.shard_map`` (``local_map``), the reference's
+``shard_map``, with its explicit collectives (``sharding.psum``,
+``all_gather``, ``all_to_all``: functional collectives, so a cost walk sees
+them as ops).  Both bodies are ``_local_moe`` with an expert step of its
+own:
+
+* the default, tensor-parallel one (``_expert_ffn``): every data shard
+  routes its OWN tokens, so the capacity ``C`` comes from the local ``T``
+  (a run with data > 1 drops other picks than one device when a bin
+  overflows, as the reference's mesh run does); the FSDP-sharded expert
+  weights are all-gathered over 'data', the expert products run on the
+  rank's 'model' slice of the experts' hidden dim, and their output is
+  summed over 'model' in the activation dtype;
+* the expert-parallel one (``_expert_parallel_ffn``, under
+  ``EXPERT_PARALLEL_RULES``): the experts shard over 'model' and the
+  capacity bins travel to their expert's rank and back by two
+  ``all_to_all``s.
+
+Either way the aux loss is averaged over the data axes.  The shared
+experts run on DTensors outside the ``shard_map``, their second product
+through ``sharding.row_parallel`` as the MLP's.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from repro_torch.models.layers import Spec, act_fn, matmul
+from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS
+from repro_torch.models.layers import Spec, act_fn, matmul, promoted
+from repro_torch.parallel import sharding as shd
 
 # Capacity rounding granularity (the reference's, MXU-friendly there).
 _CAP_ALIGN = 8
@@ -102,12 +124,25 @@ def _dispatch(xt, top_e, k: int, E: int, C: int):
     return buf, dst, keep
 
 
-def _expert_ffn(cfg, p, buf, E: int, C: int):
-    """buf (E*C+1, D) -> (E*C+1, D), the overflow row's output zeros."""
+def _expert_ffn(cfg, p, buf, E: int, C: int, mesh=None, axis=None,
+                gather_axis=None):
+    """buf (E*C+1, D) -> (E*C+1, D), the overflow row's output zeros.  On a
+    mesh: the FSDP-sharded weights all-gathered over ``gather_axis``, the
+    output summed over ``axis`` (tensor parallel) in the activation
+    dtype."""
     a = act_fn(cfg.act)
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if gather_axis is not None:  # FSDP all-gather of the embed dim
+        wg = shd.all_gather(wg, mesh, gather_axis, 1)
+        wu = shd.all_gather(wu, mesh, gather_axis, 1)
+        wd = shd.all_gather(wd, mesh, gather_axis, 2)
     eb = buf[: E * C].reshape(E, C, -1)
-    h = a(matmul(eb, p["w_gate"])) * matmul(eb, p["w_up"])
-    out = matmul(h, p["w_down"]).reshape(E * C, -1)
+    h = a(matmul(eb, wg)) * matmul(eb, wu)
+    out = matmul(h, wd)
+    if axis is not None:
+        # reduce in the activation dtype, as the reference does
+        out = shd.psum(out.to(buf.dtype), mesh, axis)    # TP reduce
+    out = out.reshape(E * C, -1)
     return torch.cat([out, torch.zeros_like(out[:1])], 0)
 
 
@@ -117,8 +152,12 @@ def _combine(out_buf, dst, top_p, T: int, k: int):
     return y.reshape(T, k, -1).sum(1)
 
 
-def _local_moe(cfg, p, x):
-    """The routed experts of one device.  x: (B, S, D)."""
+def _local_moe(cfg, p, x, expert_step, mesh=None, data_axes=()):
+    """The routed experts of one device or one shard.  x: (B, S, D) with
+    full D; the capacity from these tokens.  ``expert_step(p, buf, E, C)``
+    maps the capacity bins (E*C+1, D) to their outputs: ``_expert_ffn``
+    (on a mesh, tensor parallel) or ``_expert_parallel_ffn``.  The aux
+    loss is averaged over ``data_axes``."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
@@ -126,22 +165,92 @@ def _local_moe(cfg, p, x):
     C = _capacity(T, E, k, cfg.capacity_factor)
     top_p, top_e, aux, z = _route(cfg, p["router"], xt)
     buf, dst, _ = _dispatch(xt, top_e, k, E, C)
-    out_buf = _expert_ffn(cfg, p, buf, E, C)
-    y = _combine(out_buf, dst, top_p, T, k)
-    return y.reshape(B, S, D), cfg.router_aux_loss * aux + 1e-3 * z
+    y = _combine(expert_step(p, buf, E, C), dst, top_p, T, k)
+    aux_total = cfg.router_aux_loss * aux + 1e-3 * z
+    if data_axes:
+        n = 1
+        for ax in data_axes:
+            aux_total = shd.psum(aux_total, mesh, ax)
+            n *= mesh.size(mesh.mesh_dim_names.index(ax))
+        aux_total = aux_total / n
+    return y.reshape(B, S, D), aux_total
 
 
-def apply_moe(cfg, p, x, mesh=None, rules=None):
-    """MoE FFN.  Returns (y, aux_loss).  x: (B, S, d_model)."""
-    del rules
-    if mesh is not None:
-        raise NotImplementedError(
-            "apply_moe on a mesh (the sharded and expert-parallel FFN) is "
-            "not ported to repro_torch yet (ROADMAP Queue 1 item 13c)")
-    y, aux = _local_moe(cfg, p, x)
+def _expert_parallel_ffn(cfg, mesh, p, buf, E: int, C: int):
+    """The expert-parallel expert step: the experts sharded over 'model',
+    the capacity bins sent to their expert's rank and back by
+    all_to_all."""
+    D = buf.shape[-1]
+    n_ep = mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
+    E_loc = E // n_ep
+    # block i of `send` holds the bins of the experts rank i owns; block i
+    # of `recv` came from rank i
+    send = buf[: E * C].reshape(n_ep, E_loc * C, D)
+    recv = shd.all_to_all(send, mesh, MODEL_AXIS)
+    eb = recv.reshape(n_ep, E_loc, C, D).transpose(0, 1).reshape(
+        E_loc, n_ep * C, D)
+    a = act_fn(cfg.act)
+    h = a(matmul(eb, p["w_gate"])) * matmul(eb, p["w_up"])
+    out = matmul(h, p["w_down"])                    # (E_loc, n_ep*C, D)
+    out = out.reshape(E_loc, n_ep, C, D).transpose(0, 1).reshape(
+        n_ep, E_loc * C, D)
+    back = shd.all_to_all(out, mesh, MODEL_AXIS)
+    out_buf = back.reshape(E * C, D)
+    return torch.cat([out_buf, torch.zeros_like(out_buf[:1])], 0)
+
+
+def _shard_body(cfg, mesh, data_axes, expert_step, x, router, w_gate, w_up,
+                w_down):
+    """The ``shard_map`` body: ``_local_moe`` on this shard's weights."""
+    p = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+    return _local_moe(cfg, p, x, expert_step, mesh, data_axes)
+
+
+def _mesh_moe(cfg, p, x, mesh, rules, shard_batch: bool):
+    """The routed experts on a mesh, under ``shard_map``: the default
+    tensor-parallel body or, under rules with ``expert`` on 'model', the
+    expert-parallel one.  ``shard_batch=False`` gathers the batch first
+    (every shard routes all tokens: the capacity of the whole batch)."""
+    names = tuple(mesh.mesh_dim_names)
+    size = dict(zip(names, mesh.shape))
+    dp = tuple(a for a in (POD_AXIS, DATA_AXIS) if a in names)
+    model_in_mesh = MODEL_AXIS in names and size[MODEL_AXIS] > 1
+    P = shd.P
+    batch = (dp if len(dp) > 1 else (dp[0] if dp else None)) \
+        if shard_batch else None
+    data_axes = dp if shard_batch else ()
+    if rules.get("expert") == MODEL_AXIS:
+        w_spec = P(MODEL_AXIS, None, None)
+        specs = (w_spec, w_spec, w_spec)
+        step = functools.partial(_expert_parallel_ffn, cfg, mesh)
+    else:
+        fsdp = rules.get("embed")
+        fsdp = fsdp if (fsdp in names and size[fsdp] > 1) else None
+        tp = MODEL_AXIS if model_in_mesh else None
+        specs = (P(None, fsdp, tp), P(None, fsdp, tp), P(None, tp, fsdp))
+        step = functools.partial(_expert_ffn, cfg, mesh=mesh, axis=tp,
+                                 gather_axis=fsdp)
+    body = functools.partial(_shard_body, cfg, mesh, data_axes, step)
+    pl = functools.partial(shd.placements_for, mesh)
+    x_pl = pl(P(batch, None, None))
+    ins = (x_pl, pl(P())) + tuple(pl(sp) for sp in specs)
+    return shd.shard_map(body, mesh, ins, (x_pl, pl(P())))(
+        x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+
+
+def apply_moe(cfg, p, x, mesh=None, rules=None, shard_batch: bool = True):
+    """MoE FFN.  Returns (y, aux_loss).  x: (B, S, d_model), a DTensor on
+    ``mesh`` (see the module's docstring); ``shard_batch=False`` (the
+    decode step's) routes the whole batch on every shard."""
+    if mesh is None:
+        y, aux = _local_moe(cfg, p, x, functools.partial(_expert_ffn, cfg))
+    else:
+        y, aux = _mesh_moe(cfg, p, x, mesh, rules or shd.DEFAULT_RULES,
+                           shard_batch)
     if cfg.num_shared_experts > 0:
         sp = p["shared"]
         a = act_fn(cfg.act)
         h = a(matmul(x, sp["wi_gate"])) * matmul(x, sp["wi_up"])
-        y = y + matmul(h, sp["wo"]) * torch.sigmoid(matmul(x, sp["gate"]))
-    return y, aux
+        shared = shd.row_parallel(*promoted(h, sp["wo"]))
+        y = y + shared * torch.sigmoid(matmul(x, sp["gate"]))
+    return shd.settle(y), aux

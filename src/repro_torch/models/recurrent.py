@@ -136,6 +136,10 @@ def rglru_init_state(cfg, batch: int, device=None, dtype=torch.float32):
     }
 
 
+def rglru_state_axes():
+    return {"h": ("batch", "act_embed"), "conv": ("batch", None, "act_embed")}
+
+
 def rglru_decode_step(cfg, p, x, state):
     """x: (B,1,D) one token."""
     gate = act_fn("gelu")(matmul(x, p["w_gate_branch"]))

@@ -62,8 +62,8 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        # zeros_like keeps a DTensor parameter's placements
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         leaf = _first_leaf(params)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32,

@@ -31,15 +31,26 @@ steps runs each trip, so there are no trip counts to resolve.
 
 On the CPU the wrappers take their plain versions, which are aten ops and
 counted as such.
+
+On DTensors (a sharded step, ``Model(mesh=)``) the walk counts ONE RANK's
+work, as the reference's HLO walk counts one device's: it lets each
+DTensor op through uncounted (a DTensor argument) and counts the local ops
+and collectives the DTensor runs for this rank; the ops DTensor's sharding
+propagation runs on global shapes, to learn an output's shape, are not
+counted.  The FLOPs come from ``torch.utils.flop_counter``'s formulas
+(``flop_registry``), as ``FlopCounterMode`` counts them.  Under
+``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) nothing runs and
+the counts are the same.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import costs
 from repro_torch.kernels import decode_attention as _da
@@ -90,6 +101,91 @@ def _tensor_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _has_dtensor(tree) -> bool:
+    """Whether ``tree`` holds a DTensor (its op is the global one)."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:                               # no torch.distributed
+        return False
+    return any(isinstance(t, DTensor) for t in tree_leaves(tree))
+
+
+#: > 0 while DTensor's sharding propagation runs an op on global shapes.
+_PAUSED = [0]
+
+
+@contextlib.contextmanager
+def _pause_sharding_propagation():
+    """Mark the ops DTensor runs to propagate an output's shape (global
+    shapes, not this rank's work) as not counted.  Raises where this
+    torch's DTensor has no such hook: the walk would count global FLOPs
+    as one rank's."""
+    if not torch.distributed.is_available():          # no DTensors to walk
+        yield
+        return
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    name = "_propagate_tensor_meta_non_cached"
+    orig = ShardingPropagator.__dict__.get(name)
+    if orig is None:
+        raise RuntimeError(
+            f"torch {torch.__version__}: DTensor's ShardingPropagator has no "
+            f"{name}; the cost walk cannot tell its shape propagation from "
+            "a rank's work")
+    if getattr(orig, "_paused", False):
+        yield
+        return
+
+    @functools.wraps(orig)
+    def paused(self, *a, **k):
+        _PAUSED[0] += 1
+        try:
+            return orig(self, *a, **k)
+        finally:
+            _PAUSED[0] -= 1
+    paused._paused = True
+    setattr(ShardingPropagator, name, paused)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, orig)
+
+
+#: Size and stride queries, which ``FlopCounterMode`` passes over.
+_QUERIES = {"is_contiguous", "sym_is_contiguous", "is_strides_like_format",
+            "is_non_overlapping_and_dense", "size", "sym_size", "stride",
+            "sym_stride", "storage_offset", "sym_storage_offset", "numel",
+            "sym_numel", "dim", "layout"}
+
+
+class _FlopCounter(TorchDispatchMode):
+    """FLOPs of every op with a formula in ``flop_registry``, as
+    ``FlopCounterMode`` counts them (an op without one is decomposed where
+    it can be); a DTensor op is let through to its local ops."""
+
+    def __init__(self, walk: "CostWalk"):
+        super().__init__()
+        self.walk = walk
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _has_dtensor((args, kwargs)):
+            return NotImplemented
+        if func.name().partition("::")[2].split(".")[0] in _QUERIES:
+            return func(*args, **kwargs)
+        packet = func._overloadpacket
+        if (packet not in flop_registry
+                and func is not torch.ops.prim.device.default):
+            with self:
+                r = func.decompose(*args, **kwargs)
+                if r is not NotImplemented:
+                    return r
+        out = func(*args, **kwargs)
+        if packet in flop_registry and not _PAUSED[0]:
+            self.walk.flops += flop_registry[packet](*args, **kwargs,
+                                                     out_val=out)
+        return out
+
+
 class _ByteCounter(TorchDispatchMode):
     """Bytes of every aten op and the collectives, into ``walk``."""
 
@@ -99,7 +195,11 @@ class _ByteCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _has_dtensor((args, kwargs)):
+            return NotImplemented
         out = func(*args, **kwargs)
+        if _PAUSED[0]:
+            return out
         namespace, _, name = func.name().partition("::")
         if func.is_view or name in _FREE_OPS:
             return out
@@ -119,26 +219,31 @@ class CostWalk:
     without recording its cost."""
 
     def __init__(self):
+        self.flops = 0
         self.bytes = 0.0
         self.coll = {kind: 0.0 for kind in COLL_KINDS}
         self.coll_ops = 0
         self.kernels: dict = {}
-        self._flops = FlopCounterMode(display=False)
+        self._fake: dict = {}
         self._stack = None
         self._before = None
 
-    def kernel(self, name: str, flops: float, nbytes: float) -> None:
-        """One launch of kernel ``name`` (``kernels.costs.record``)."""
+    def kernel(self, name: str, flops: float, nbytes: float,
+               fake: bool = False) -> None:
+        """One launch of kernel ``name`` (``kernels.costs.record``);
+        ``fake``: one that fake tensors stood for (nothing launched)."""
         k = self.kernels.setdefault(name, {"launches": 0, "flops": 0.0,
                                            "bytes": 0.0})
         k["launches"] += 1
+        self._fake[name] = self._fake.get(name, 0) + int(fake)
         k["flops"] += flops
         k["bytes"] += nbytes
 
     def __enter__(self) -> "CostWalk":
         self._before = _launch_counts()
         self._stack = contextlib.ExitStack()
-        self._stack.enter_context(self._flops)
+        self._stack.enter_context(_pause_sharding_propagation())
+        self._stack.enter_context(_FlopCounter(self))
         self._stack.enter_context(_ByteCounter(self))
         costs.walks.append(self)
         return self
@@ -151,7 +256,8 @@ class CostWalk:
         after = _launch_counts()
         for name, n in after.items():
             launched = n - self._before[name]
-            counted = self.kernels.get(name, {}).get("launches", 0)
+            counted = (self.kernels.get(name, {}).get("launches", 0)
+                       - self._fake.get(name, 0))
             if launched != counted:
                 raise RuntimeError(
                     f"cost walk: {name} launched {launched} times, its cost "
@@ -161,7 +267,7 @@ class CostWalk:
     def result(self) -> dict:
         kf = sum(k["flops"] for k in self.kernels.values())
         kb = sum(k["bytes"] for k in self.kernels.values())
-        out = {"flops": float(self._flops.get_total_flops()) + kf,
+        out = {"flops": float(self.flops) + kf,
                "bytes": self.bytes + kb,
                "collective_bytes": float(sum(self.coll.values())),
                "collective_ops": self.coll_ops}

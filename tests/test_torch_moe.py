@@ -128,10 +128,34 @@ def test_capacity_matches_reference(T, E, k, cf):
 
 
 def test_apply_moe_on_a_mesh_raises_naming_13c():
+    """Once ``apply_moe(mesh=)`` raised, naming ROADMAP item 13c; the item
+    is ported, so on a mesh both variants now run (here on a fake 2 x 2
+    process group, shapes only; ``tests/test_torch_sharded_model.py``
+    holds their values to the reference's mesh run)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import init_tree
+    from repro_torch.parallel import sharding as shd
     cfg = t_base.get_config("mixtral-8x7b", True)
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        t_moe.apply_moe(cfg, {}, torch.zeros(1, 2, cfg.d_model),
-                        mesh=object())
+    specs = t_moe.moe_specs(cfg)
+    params = init_tree(torch.Generator().manual_seed(0), specs)
+    axes = {k: v.axes for k, v in specs.items()}
+    x = torch.zeros(2, 4, cfg.d_model)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_host_mesh(2, 2, device="cpu")
+        for rules in (shd.DEFAULT_RULES, shd.EXPERT_PARALLEL_RULES):
+            p = shd.distribute_tree(mesh, params, axes, rules)
+            dx = shd.distribute_tree(mesh, {"x": x},
+                                     {"x": ("batch", "seq", None)}, rules)
+            with shd.on_mesh(mesh):
+                y, aux = t_moe.apply_moe(cfg, p, dx["x"], mesh=mesh,
+                                         rules=rules)
+            assert shd.is_dtensor(y) and tuple(y.shape) == tuple(x.shape)
+            assert tuple(aux.shape) == ()
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
