@@ -7,7 +7,8 @@
   accumulator's per-edge weighted sums (``csrc/segment_sum.cu``).
 * ``flash_attention`` — blocked online-softmax GQA attention with causal
   and sliding-window masks, the prefill attention of the transformer stack
-  (``csrc/flash_attention.cu``).
+  (``csrc/flash_attention.cu`` in fp32, ``csrc/flash_attention_bf16.cu``
+  in bf16).
 * ``rglru_scan``     — the RG-LRU linear recurrence ``h_t = a_t h_{t-1} +
   b_t`` (``csrc/rglru_scan.cu``).
 * ``decode_attention`` — one-token GQA attention over the ring KV cache,

@@ -1,5 +1,6 @@
 // Blocked online-softmax GQA attention with causal and sliding-window masks
-// (FlashAttention's scheme), in fp32 on the CUDA cores:
+// (FlashAttention's scheme), in fp32 on the CUDA cores (bf16 operands take
+// flash_attention_bf16.cu, on the tensor cores):
 //
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / g] / sqrt(hd)) v[b, j, h / g]
 //
@@ -68,8 +69,7 @@
 //     copies (zero-filled past Sk and past hd).  V of tile t is in flight
 //     while S of tile t is computed, K of tile t + 1 while P V of tile t is:
 //     one __syncthreads per buffer and tile (two per 64 keys, where the
-//     first version had four per 32).  bf16 operands go through registers
-//     instead, converted to fp32 on the way into shared memory.
+//     first version had four per 32).
 //   - Instantiations by head dim, HD = 64, 128 or 256 (any hd that is a
 //     multiple of 4 and at most 256 takes the smallest HD >= hd, its extra
 //     columns zero), __launch_bounds__(256, 1): no spill (ptxas -v; 168,
@@ -98,7 +98,6 @@
 // two launches agree bit for bit.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -139,28 +138,13 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v.x, v.y);
-  q[1] = __floats2bfloat162_rn(v.z, v.w);
-}
 
-// 4 elements of src (if ok, else zeros) into dst as fp32: fp32 by a 16-byte
-// cp.async (zero-filled when !ok), bf16 through registers.
+// 4 floats of src (if ok, else zeros) into dst by a 16-byte cp.async
+// (zero-filled when !ok).
 __device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src, bool ok) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (ok) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(src);
-    const float2 lo = __bfloat1622float2(p[0]);
-    const float2 hi = __bfloat1622float2(p[1]);
-    v = make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  store4(dst, v);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -172,8 +156,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Rows [k0, k0 + BK) of K or V (row stride ss) into dst [BK][LD]; rows past
 // Sk and columns past hd are zeros.  A thread copies one 4-column group of
 // every (blockDim.x / (HD / 4))-th row (blockDim.x is a multiple of HD / 4).
-template <typename T, int HD>
-__device__ __forceinline__ void copy_tile(float* dst, const T* src, int64_t k0, int64_t Sk,
+template <int HD>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int64_t k0, int64_t Sk,
                                           int64_t ss, int hd) {
   constexpr int PER_ROW = HD / 4;
   const int c = 4 * (threadIdx.x % PER_ROW);
@@ -186,10 +170,10 @@ __device__ __forceinline__ void copy_tile(float* dst, const T* src, int64_t k0, 
 
 // grid: row_tiles * B * K blocks of 32 * warps threads; dynamic shared
 // memory smem_bytes<HD>(warps).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int64_t Sq, int64_t Sk,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int64_t Sq, int64_t Sk,
                        int64_t H, int64_t K, int64_t group, int hd, int64_t row_tiles,
                        int64_t heads, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                        int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -227,9 +211,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t all_hi = causal ? f0 / group + offset : Sk - 1;
   const int64_t all_lo = window > 0 ? (f_end - 1) / group + offset - window + 1 : 0;
 
-  const T* const qb = q + b * q_sb + kh * group * q_sh;
-  const T* const kb = k + b * k_sb + kh * k_sh;
-  const T* const vb = v + b * v_sb + kh * v_sh;
+  const float* const qb = q + b * q_sb + kh * group * q_sh;
+  const float* const kb = k + b * k_sb + kh * k_sh;
+  const float* const vb = v + b * v_sb + kh * v_sh;
   {
     constexpr int PER_ROW = HD / 4;
     for (int i = threadIdx.x; i < R * PER_ROW; i += blockDim.x) {
@@ -240,7 +224,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       copy4(qs + r * LD + c, ok ? qb + (f / group) * q_ss + (f % group) * q_sh + c : qb, ok);
     }
   }
-  if (n_tiles > 0) copy_tile<T, HD>(ks, kb, kt0 * BK, Sk, k_ss, hd);
+  if (n_tiles > 0) copy_tile<HD>(ks, kb, kt0 * BK, Sk, k_ss, hd);
   cp_async_commit();
 
   const int row0 = warp * C::RPW + rg * TR;      // this lane's rows: row0 + i
@@ -265,7 +249,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t k0 = (kt0 + it) * BK;
     cp_async_wait_all();
     __syncthreads();            // K landed; every warp is done with the last V
-    copy_tile<T, HD>(vs, vb, k0, Sk, v_ss, hd);
+    copy_tile<HD>(vs, vb, k0, Sk, v_ss, hd);
     cp_async_commit();
 
     // S = Q K^T on this lane's TR rows x TK keys (keys cg + L t)
@@ -353,7 +337,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     cp_async_wait_all();
     __syncthreads();            // V landed; every warp is done with K (and P is written)
-    if (it + 1 < n_tiles) copy_tile<T, HD>(ks, kb, k0 + BK, Sk, k_ss, hd);
+    if (it + 1 < n_tiles) copy_tile<HD>(ks, kb, k0 + BK, Sk, k_ss, hd);
     cp_async_commit();
 
     // O += P V on this lane's TR rows x 4 TC columns (columns 4 cg + 4 L u)
@@ -391,7 +375,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t f = f0 + row0 + i;
     if (f >= n_rows) continue;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    T* const orow = o + ((b * Sq + f / group) * H + kh * group + f % group) * hd;
+    float* const orow = o + ((b * Sq + f / group) * H + kh * group + f % group) * hd;
 #pragma unroll
     for (int u = 0; u < TC; ++u) {
       const int c = 4 * cg + 4 * L * u;
@@ -403,13 +387,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
            int64_t Sk, int64_t H, int64_t K, int hd, const int64_t* st, int causal,
            int64_t window, int64_t offset, int warps, cudaStream_t stream) {
   if (32 * warps < HD / 4) return (int)cudaErrorInvalidValue;  // see copy_tile
   const size_t smem = smem_bytes<HD>(warps);
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -417,24 +401,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int6
   const int64_t row_tiles = (Sq * (H / K) + rows - 1) / rows;
   const int64_t blocks = row_tiles * B * K;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  flash_attention_kernel<T, HD><<<(unsigned)blocks, 32 * warps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, K, H / K, hd, row_tiles, B * K, st[0], st[1], st[2],
+  flash_attention_kernel<HD><<<(unsigned)blocks, 32 * warps, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, K, H / K, hd, row_tiles, B * K, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], causal, window, offset);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
              int64_t Sk, int64_t H, int64_t K, int hd, const int64_t* st, int causal,
              int64_t window, int64_t offset, int warps, cudaStream_t stream) {
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, K, hd, st, causal, window, offset, warps,
+    return launch<64>(q, k, v, o, B, Sq, Sk, H, K, hd, st, causal, window, offset, warps,
                          stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, K, hd, st, causal, window, offset, warps,
+    return launch<128>(q, k, v, o, B, Sq, Sk, H, K, hd, st, causal, window, offset, warps,
                           stream);
-  return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, K, hd, st, causal, window, offset, warps,
+  return launch<256>(q, k, v, o, B, Sq, Sk, H, K, hd, st, causal, window, offset, warps,
                         stream);
 }
 
@@ -442,9 +425,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B, in
 
 // q: (B, Sq, H, hd), k and v: (B, Sk, K, hd), each with its own (batch,
 // sequence, head) strides in elements and a contiguous last dimension, all
-// fp32 (is_bf16 = 0) or all bf16 (1); hd a multiple of 4, at most 256;
+// fp32; hd a multiple of 4, at most 256;
 // every stride a multiple of 4 and every pointer 16-byte aligned; H a
-// multiple of K.  o: (B, Sq, H, hd) contiguous, of q's type.  offset is the
+// multiple of K.  o: (B, Sq, H, hd) contiguous fp32.  offset is the
 // position of query row 0 (Sk - Sq aligns the ends); window <= 0 means no
 // window.  warps: 1, 2, 4 or 8 warps per block (the block's rows are
 // warps * RPW (query position, head) pairs: RPW = 32, 16, 8 at hd <= 64,
@@ -455,16 +438,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int64_t hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                                int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                                int64_t v_ss, int64_t v_sh, int causal, int64_t window,
-                               int64_t offset, int warps, int is_bf16, int device,
-                               void* stream) {
+                               int64_t offset, int warps, int device, void* stream) {
   if (warps != 1 && warps != 2 && warps != 4 && warps != 8)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int64_t st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, (int)hd, st, causal,
-                                           window, offset, warps, s)
-                 : dispatch<float>(q, k, v, o, B, Sq, Sk, H, K, (int)hd, st, causal, window,
-                                   offset, warps, s);
+  return dispatch(q, k, v, o, B, Sq, Sk, H, K, (int)hd, st, causal, window, offset, warps, s);
 }

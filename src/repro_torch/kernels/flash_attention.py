@@ -1,6 +1,7 @@
 """Blocked online-softmax GQA attention with causal and sliding-window
-masks: the wrapper of the CUDA kernel ``csrc/flash_attention.cu`` and its
-plain version.  Replaces the TPU kernel ``flash_attention_bkh``
+masks: the wrapper of the CUDA kernels ``csrc/flash_attention.cu`` (fp32,
+CUDA cores) and ``csrc/flash_attention_bf16.cu`` (bf16, ``wgmma`` on the
+tensor cores) and their plain version.  Replaces the TPU kernel ``flash_attention_bkh``
 (``repro/kernels/flash_attention.py:89``, wrapper
 ``repro/kernels/ops.py:57``).
 
@@ -13,14 +14,16 @@ A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
-(``grad_guard``).  ``launch_counts`` counts the launches, so a run can
-show that its attention layers went through the kernel; each launch also
-hands its cost (``flash_attention_cost``) to the running cost walks
-(``kernels.costs``).
+(``grad_guard``).  ``launch_counts`` counts the launches under the
+kernel launched (``flash_attention`` in fp32, ``flash_attention_bf16`` in
+bf16), so a run can show that its attention layers went through the
+kernel; each launch also hands its cost (``flash_attention_cost``) to the
+running cost walks (``kernels.costs``) under the same name.
 
 On the card a block serves the whole query group of one (batch, KV head):
-its rows are consecutive (query position, head) pairs, ``rows_per_warp``
-a warp, and ``attention_warps`` picks its warps.
+its rows are consecutive (query position, head) pairs.  In fp32
+``rows_per_warp`` a warp, and ``attention_warps`` picks its warps; in
+bf16 64 a consumer warpgroup, and ``bf16_block_rows`` picks the rows.
 """
 from __future__ import annotations
 
@@ -40,13 +43,19 @@ KEY_TILE = 64                  # keys per K/V tile of the kernel
 #: Warps per block at most (256 threads, the kernel's launch bound).
 MAX_WARPS = 8
 
-launch_counts = {"flash_attention": 0}
+#: Rows a block of the bf16 kernel may take: 128 (two consumer
+#: warpgroups of 64; head dims up to 128), or 64, 32, 16 live rows of one.
+BF16_ROWS = (128, 64, 32, 16)
+
+launch_counts = {"flash_attention": 0, "flash_attention_bf16": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+# both kernels' C functions: pointers, 15 sizes and strides, causal,
+# window, offset, warps (fp32) or rows (bf16), device, stream
 _ARGTYPES = [_P, _P, _P, _P] + [_I64] * 15 + [_INT, _I64, _I64, _INT, _INT,
-                                              _INT, _P]
+                                              _P]
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +109,87 @@ def attention_warps(batch: int, sq: int, heads: int, kv_heads: int,
                                                  hd, w) < NUM_SMS:
         w //= 2
     return w
+
+
+def bf16_stages(hd: int) -> int:
+    """K/V tiles in the bf16 kernel's ring: 4, 3, 2 at head-dim classes
+    64, 128, 256."""
+    return {64: 4, 128: 3, 256: 2}[head_dim_class(hd)]
+
+
+def bf16_smem_bytes(hd: int, rows: int) -> int:
+    """Shared memory of one bf16 block of ``rows`` rows, as the kernel lays
+    it out: a Q tile of 64 rows a consumer warpgroup (two at 128 rows),
+    ``bf16_stages`` K and V tiles of ``KEY_TILE`` keys, all ``HD`` bf16
+    wide, three mbarriers a stage, and 1,024 bytes of alignment slack."""
+    c, stages = head_dim_class(hd), bf16_stages(hd)
+    tile = 64 * c * 2
+    return 1024 + (2 if rows == 128 else 1) * tile + 2 * stages * tile \
+        + 3 * stages * 8
+
+
+def bf16_blocks(batch: int, sq: int, heads: int, kv_heads: int,
+                rows: int) -> int:
+    """Blocks of one bf16 launch: ``ceil(Sq * g / rows)`` row tiles per
+    (batch, KV head)."""
+    return -(-sq * (heads // kv_heads) // rows) * batch * kv_heads
+
+
+def bf16_max_rows(hd: int) -> int:
+    """The most rows a bf16 block takes: 128 up to head dim 128; 64 above,
+    where a consumer's O fragment (128 fp32 registers a thread) needs
+    more registers than a two-consumer block can give it."""
+    return 64 if head_dim_class(hd) == 256 else 128
+
+
+def bf16_block_rows(batch: int, sq: int, heads: int, kv_heads: int,
+                    hd: int) -> int:
+    """Rows a bf16 block: the most of ``BF16_ROWS`` (at most
+    ``bf16_max_rows``) whose launch still has ``NUM_SMS`` blocks; the
+    fewest when none has.  Below 64 a block's one consumer warpgroup
+    computes 64 rows and keeps that many, so short prompts still spread
+    over the card."""
+    for rows in BF16_ROWS:
+        if rows <= bf16_max_rows(hd) and bf16_blocks(
+                batch, sq, heads, kv_heads, rows) >= NUM_SMS:
+            return rows
+    return BF16_ROWS[-1]
+
+
+def check_bf16_operands(q, k, v) -> None:
+    """The bf16 kernel's operand contract, which its TMA tensor maps and
+    16-byte Q loads need: hd a multiple of 8 in [8, ``MAX_HEAD_DIM``]; for
+    each of q, k, v a contiguous last dimension, (batch, sequence, head)
+    strides that are multiples of 8 elements (a dimension of size 1 may
+    have any stride) and a 16-byte aligned start.  Raises ``ValueError``.
+    ``_project_qkv``'s outputs (contiguous, or views of a fused
+    (B, S, H + 2K, hd) projection) meet it at every config's head dim."""
+    hd = q.shape[-1]
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"bf16 attention needs a head_dim that is a "
+                         f"multiple of 8 in [8, {MAX_HEAD_DIM}], got {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 and t.shape[3] > 1 or t.data_ptr() % 16 or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"bf16 attention: {name} needs a contiguous "
+                             f"last dimension, strides that are multiples "
+                             f"of 8 and a 16-byte aligned start; got "
+                             f"strides {t.stride()} at byte "
+                             f"{t.data_ptr() % 16} of 16")
+
+
+def _tma_strides(t) -> tuple:
+    """t's (batch, sequence, head) strides, a size-1 dimension's replaced by
+    the stride the dimension inside it would give it (its value never
+    counts), so that every stride the tensor map gets is a multiple of 16
+    bytes."""
+    st = list(t.stride()[:3])
+    inner = t.shape[3]                     # the last dimension is contiguous
+    for d in (2, 1, 0):
+        if t.shape[d] == 1:
+            st[d] = inner
+        inner = st[d] * t.shape[d]
+    return tuple(st)
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int, device=None):
@@ -172,8 +262,10 @@ def _check(q, k, v, causal):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """GQA attention.  q: (B, Sq, H, hd), k, v: (B, Sk, K, hd), fp32 or
     bf16 -> (B, Sq, H, hd) of q's dtype.  On the card the operands are read
-    in place through their strides: the last dimension must be contiguous,
-    hd a multiple of 4 and at most 256, the other strides multiples of 4."""
+    in place through their strides: fp32 runs ``flash_attention.cu`` (the
+    last dimension contiguous, hd a multiple of 4 and at most 256, the
+    other strides multiples of 4), bf16 ``flash_attention_bf16.cu``
+    (``check_bf16_operands``)."""
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -182,20 +274,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     refuse_autograd("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if hd % 4 or not 0 < hd <= MAX_HEAD_DIM:
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bf16" if bf16 else "flash_attention"
+    if not bf16 and (hd % 4 or not 0 < hd <= MAX_HEAD_DIM):
         raise ValueError(f"head_dim must be a multiple of 4 in [4, "
                          f"{MAX_HEAD_DIM}], got {hd}")
     if costs.is_fake(q):
-        return costs.fake_launch("flash_attention", flash_attention_cost,
+        return costs.fake_launch(name, flash_attention_cost,
                                  torch.empty_like(q), q, k, v, causal=causal,
                                  window=window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
-                t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous last dimension, "
-                             f"strides that are multiples of 4 and a "
-                             f"16-byte aligned start; got strides "
-                             f"{t.stride()}")
+    if bf16:
+        check_bf16_operands(q, k, v)
+    else:
+        for arg, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or \
+                    t.data_ptr() % 16:
+                raise ValueError(f"{arg} needs a contiguous last dimension, "
+                                 f"strides that are multiples of 4 and a "
+                                 f"16-byte aligned start; got strides "
+                                 f"{t.stride()}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -203,16 +300,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("attention over no keys")
     if max(Sq, Sk) + abs(Sk - Sq) >= 2**31:
         raise ValueError(f"Sq = {Sq}, Sk = {Sk}: positions past an int32")
-    err = build.load("flash_attention", _ARGTYPES)(
+    if bf16:
+        strides = (*q.stride()[:3], *_tma_strides(k), *_tma_strides(v))
+        block = bf16_block_rows(B, Sq, H, K, hd)
+    else:
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        block = attention_warps(B, Sq, H, K, hd)
+    err = build.load(name, _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, K, hd, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), int(window), Sk - Sq,
-        attention_warps(B, Sq, H, K, hd), int(q.dtype == torch.bfloat16),
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+        B, Sq, Sk, H, K, hd, *strides, int(causal), int(window), Sk - Sq,
+        block, q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    launch_counts["flash_attention"] += 1
-    costs.record("flash_attention", flash_attention_cost, q, k, v,
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+    costs.record(name, flash_attention_cost, q, k, v,
                  causal=causal, window=window)
     return out
