@@ -21,7 +21,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. Device: the card's name and power limit, the CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (build seconds; ptxas's registers and
    spills of every kernel; no spill in ``flash_attention``,
-   ``flash_attention_bf16``, ``decode_attention``, ``segment_sum``,
+   ``flash_attention_bf16``, ``decode_attention``,
+   ``decode_attention_bf16``, ``segment_sum``,
    ``segment_aggregate``, ``cloud_aggregate`` and ``weighted_mean``), TF32
    off.
 2. Kernels against their plain PyTorch versions on the card, at the
@@ -50,7 +51,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    show no register spill),
    ``decode_attention`` at the decode shapes of phases 7 and 8 and of
    the serving CLI (beside masked SDPA on expanded heads and with
-   ``enable_gqa=True``; with half and twice its rule's split count),
+   ``enable_gqa=True``; with half and twice its rule's split count), and
+   its bf16 kernel (``decode_attention_bf16``) on every case and at the
+   bf16 paths' shapes (phases 17 (c) and 19 (b)) by the bf16 rule,
    ``weighted_mean`` at phase 9's
    slab and at a fleet-scale shard in fp32 and bf16, its tile counters
    back at 0 after every call (and the slab and the fleet shards with half
@@ -248,7 +251,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``serve.generate``: B=2, 256 patch embeddings and 3,840 tokens, 32
    greedy tokens, peak memory under 80 GB; then a prefill (48
    ``flash_attention_bf16`` launches) and TEACHER_STEPS teacher-forced
-   decode steps (48 ``decode_attention`` each) against the plain route,
+   decode steps (48 ``decode_attention_bf16`` each) against the plain route,
    within BF16_FACTOR times the bf16 yardstick (the plain route with bf16
    activations against the same with fp32 activations on the same bf16
    weights); a profiled decode step; (d) 2 layers of it at full width in
@@ -258,7 +261,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``flash_attention`` and ``decode_attention`` at Whisper's shapes
    (fp32) and InternVL2's (bf16, their own lines and tolerances) against
    their plain versions and timed beside SDPA and their bounds (bf16: at
-   the bf16 tensor-core rate).
+   the bf16 tensor-core rate), the bf16 decode also with half and twice
+   its rule's split count.
 18. The roofline bridge (``repro_torch.roofline``), run right after
    phase 15 on its StableLM-1.6B before the weights are freed: (a) one
    more warm train step (B=8, S=128, fp32, AdamW) under the cost walk
@@ -286,7 +290,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (B=2, 1,024 tokens, 4 steps) under the default and the expert-parallel
    rules, routes pinned: logits within phase 17's bf16 rule, every greedy
    token equal but at the single-device run's near-ties, 24 K5 (its bf16
-   kernel, ``flash_attention_bf16``) and 96 K7 launches on every rank; (c)
+   kernel, ``flash_attention_bf16``) and 96 K7 (``decode_attention_bf16``)
+   launches on every rank, then both bf16 kernels timed at a rank's local
+   shape (the decode also at half and twice its splits); (c)
    the dry run (``--mesh-dryrun``, a process of its own) of (a) and (b)
    on fake groups: per-rank FLOPs, collective bytes and argument bytes
    equal rank 0's walk of the real step, then the production pair
@@ -398,8 +404,10 @@ FA_INSTANTIATIONS = 3        # flash_attention.cu: head dims 64/128/256,
                              # fp32
 FA_BF16_INSTANTIATIONS = 5   # flash_attention_bf16.cu: head dims 64/128 x
                              # 1 or 2 consumer warpgroups, 256 x 1
-DA_INSTANTIATIONS = 12       # decode_attention.cu: head dims 64/128/256 x
-                             # 1 or 2 m-tiles x fp32/bf16
+DA_INSTANTIATIONS = 6        # decode_attention.cu: head dims 64/128/256
+                             # x 1 or 2 m-tiles, fp32
+DA_BF16_INSTANTIATIONS = 3   # decode_attention_bf16.cu: head dims
+                             # 64/128/256
 SEG_INSTANTIATIONS = 6       # segment_sum.cu, segment_aggregate.cu,
                              # cloud_aggregate.cu, weighted_mean.cu: load
                              # widths of 4, 2, 1 elements x fp32/bf16
@@ -588,6 +596,10 @@ KERNELS = {
     "decode_attention": dict(
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:66"),
+    # the same wrapper's bf16 kernel, counted under its own name
+    "decode_attention_bf16": dict(
+        source="src/repro_torch/kernels/csrc/decode_attention_bf16.cu",
+        replaces="src/repro/kernels/decode_attention.py:66"),
 }
 COUNTERS = (ha, fa, rs, da)
 
@@ -636,6 +648,7 @@ def phase_device() -> None:
           "flash_attention_bf16: ptxas ignored setmaxnreg or serialized "
           "wgmma")
     check_no_spill(paths["decode_attention"], DA_INSTANTIATIONS)
+    check_no_spill(paths["decode_attention_bf16"], DA_BF16_INSTANTIATIONS)
     check_no_spill(paths["segment_sum"], SEG_INSTANTIATIONS)
     check_no_spill(paths["segment_aggregate"], SEG_INSTANTIATIONS)
     check_no_spill(paths["cloud_aggregate"], SEG_INSTANTIATIONS)
@@ -1621,45 +1634,74 @@ def decode_inputs(case, dtype=torch.float32):
     return q, k, v, sp, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
-def check_decode_against_plain(cases=None) -> float:
-    """``decode_attention`` on each case (DECODE_CASES and one bf16 case by
-    default) against its plain version (fp32 within KERNEL_RTOL of the
-    output's scale; bf16 within 2 bf16 ulps), bit for bit between two
-    launches, and the empty cache equal to the mean of V; returns the
-    largest fp32 absolute error."""
-    worst = 0.0
+def bf16_decode_cases() -> list:
+    """The bf16 kernel's cases: every one of DECODE_CASES (its copies by
+    TMA, and by threads at hd 100), then the bf16 paths' shapes (phase 17
+    (c)'s InternVL2-26B, phase 19 (b)'s local Qwen1.5-MoE), Qwen3-32B's
+    group of 8 and RecurrentGemma-9B's group of 16 at hd 256 under its
+    2,048 window before the ring fills."""
+    return [(c, True) for c in DECODE_CASES + [
+        DECODE_VLM, DECODE_MESH_LOCAL,
+        (2, 4096, 64, 8, 128, 2500, 0, "prefix"),
+        (1, 2048, 16, 1, 256, 1500, 2048, "prefix")]]
+
+
+def check_decode_against_plain(cases=None) -> dict:
+    """``decode_attention`` on each case (DECODE_CASES in fp32 and
+    ``bf16_decode_cases`` by default) against its plain version (fp32
+    within KERNEL_RTOL of the output's scale; bf16 each element within one
+    bf16 ulp of itself plus BF16_FLOOR of the largest value, and within 2
+    bf16 ulps of the largest value), bit for bit between two launches,
+    each call one launch of its dtype's kernel and none of the other's,
+    and the empty cache equal to the mean of V; returns the largest
+    absolute error of each dtype (``fp32``, ``bf16``)."""
+    worst = {"fp32": 0.0, "bf16": 0.0}
     if cases is None:
-        cases = [(c, False) for c in DECODE_CASES] + [(DECODE_CASES[0], True)]
+        cases = [(c, False) for c in DECODE_CASES] + bf16_decode_cases()
     for case, bf16 in cases:
         window = case[6]
         args = decode_inputs(case, torch.bfloat16 if bf16 else torch.float32)
+        kernel = "decode_attention_bf16" if bf16 else "decode_attention"
+        want = dict(da.launch_counts)
+        want[kernel] += 2
         out = da.decode_attention(*args, window=window)
         again = da.decode_attention(*args, window=window)
         ref = da.decode_attention_plain(*args, window=window)
         torch.cuda.synchronize()
         name = "-".join(map(str, case)) + ("-bf16" if bf16 else "")
+        check(da.launch_counts == want, f"{kernel} {name}: launches "
+              f"{da.launch_counts} != {want}")
         check(out.shape == args[0].shape and out.dtype == args[0].dtype,
-              f"decode_attention {name}: dtype/shape")
-        check(bool(torch.isfinite(out).all()), f"decode_attention {name}: "
-              "finite")
-        check(torch.equal(out, again), f"decode_attention {name}: two "
-              "launches differ")
+              f"{kernel} {name}: dtype/shape")
+        check(bool(torch.isfinite(out).all()), f"{kernel} {name}: finite")
+        check(torch.equal(out, again), f"{kernel} {name}: two launches "
+              "differ")
         err = _max_err(out.float(), ref.float())
         scale = float(ref.float().abs().max())
         tol = (2 * 2 ** -8 if bf16 else KERNEL_RTOL) * scale
-        check(err <= tol, f"decode_attention {name}: max|err| {err:.3e} > "
+        check(err <= tol, f"{kernel} {name}: max|err| {err:.3e} > "
               f"{tol:.3e}")
+        note = ""
+        if bf16:
+            # the worst element against its own allowance
+            share = float(((out.float() - ref.float()).abs() / (
+                2 ** -7 * ref.float().abs() + BF16_FLOOR * scale)).max())
+            check(share <= 1.0, f"{kernel} {name}: an element is "
+                  f"{share:.3f} of its allowance (one bf16 ulp of itself "
+                  f"plus {BF16_FLOOR:g} of the scale) off")
+            note = f"; worst element {share:.3f} of its own allowance"
         if case[-1] == "empty":
             B, W, H, K, hd = case[:5]
-            mean = args[2].mean(1).repeat_interleave(H // K, 1)[:, None]
-            check(_max_err(out, mean) <= KERNEL_RTOL * scale,
-                  "decode_attention: an empty cache gives the mean of V")
-        if not bf16:
-            worst = max(worst, err)
-        splits, per = da.decode_splits(case[0] * case[3], case[1])
-        print(f"  {'decode_attention':17s} {name:32s} max|err| {err:.3e} "
-              f"(scale {scale:.3e}; tolerance {tol:.3e}; {splits} splits "
-              f"of at most {per} tiles)")
+            mean = args[2].float().mean(1).repeat_interleave(H // K, 1)[:, None]
+            check(_max_err(out.float(), mean) <= (
+                2 * 2 ** -8 if bf16 else KERNEL_RTOL) * scale,
+                  f"{kernel}: an empty cache gives the mean of V")
+        worst["bf16" if bf16 else "fp32"] = max(
+            worst["bf16" if bf16 else "fp32"], err)
+        splits, per = split_rule(case, bf16)
+        print(f"  {kernel:17s} {name:32s} max|err| {err:.3e} "
+              f"(scale {scale:.3e}; tolerance {tol:.3e}{note}; {splits} "
+              f"splits of at most {per} tiles)")
     return worst
 
 
@@ -1687,23 +1729,33 @@ def decode_yardsticks(q, k, v, mask) -> dict:
     return calls
 
 
+def split_rule(case, bf16: bool) -> tuple:
+    """(splits, most tiles of a split) of ``decode_attention``'s kernel for
+    the dtype at ``case``'s shape."""
+    B, W, H, K = case[:4]
+    if bf16:
+        return da.decode_bf16_splits(B * K, W, H // K)
+    return da.decode_splits(B * K, W)
+
+
 def time_decode(case, dtype=torch.float32) -> dict:
-    """``decode_attention`` at a serving decode shape, its plain version,
-    the library yardsticks (``decode_yardsticks``, each checked against the
-    plain version; ``library_ms`` is the fastest) and its bound from the
-    slots that count in this input: their K and V rows, q and the output
-    (of q's dtype), slot_pos and pos; in bf16 at the bf16 tensor-core
-    rate."""
+    """``decode_attention`` at a serving decode shape (in bf16 its own
+    kernel), its plain version, the library yardsticks
+    (``decode_yardsticks``, each checked against the plain version;
+    ``library_ms`` is the fastest) and its bound from the slots that count
+    in this input: their K and V rows, q and the output (of q's dtype),
+    slot_pos and pos; in bf16 at the bf16 tensor-core rate."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, W, H, K, hd, _, window, _ = case
+    bf16 = dtype == torch.bfloat16
+    kernel = "decode_attention_bf16" if bf16 else "decode_attention"
     q, k, v, sp, pos = decode_inputs(case, dtype)
     mask = da.valid_slots(sp, pos, window)
     calls = decode_yardsticks(q, k, v, mask)
     ref = da.decode_attention_plain(q, k, v, sp, pos, window=window)
     for name, call in calls.items():
         lib_err = _max_err(call().float(), ref.float())
-        print(f"  {'decode_attention':17s} {name} vs plain max|err| "
-              f"{lib_err:.3e}")
+        print(f"  {kernel:17s} {name} vs plain max|err| {lib_err:.3e}")
         check(lib_err <= (1e-4 if dtype == torch.float32 else lib_tol(ref)),
               f"{name} computes the same function")
     lib = {name: time_ms(call, flush) for name, call in calls.items()}
@@ -1715,9 +1767,9 @@ def time_decode(case, dtype=torch.float32) -> dict:
              plain_ms=time_ms(lambda: da.decode_attention_plain(
                  q, k, v, sp, pos, window=window), flush),
              library_ms=lib[fastest], **bound(nbytes, flops))
-    extra = bf16_bounds(r, nbytes, flops) if dtype == torch.bfloat16 else ""
-    splits, per = da.decode_splits(B * K, W)
-    print(f"  {'decode_attention':17s} {'-'.join(map(str, case))}"
+    extra = bf16_bounds(r, nbytes, flops) if bf16 else ""
+    splits, per = split_rule(case, bf16)
+    print(f"  {kernel:17s} {'-'.join(map(str, case))}"
           f"{'-bf16' if extra else ''}: "
           f"kernel {r['ms'] * 1e3:.2f} us   plain {r['plain_ms'] * 1e3:.2f} "
           "us   " + "   ".join(f"{n} {t * 1e3:.2f} us" for n, t in lib.items())
@@ -1729,31 +1781,35 @@ def time_decode(case, dtype=torch.float32) -> dict:
     return r
 
 
-def time_split_rule(case) -> None:
-    """``decode_attention`` with the split count its rule picks
-    (``decode_attention.decode_splits``: a block per SM) against half and
-    twice as many splits, on the same inputs, so that the rule is checked
-    on every run.  Twice is left out where it would give a split no tile;
-    where it asks for more blocks than the card holds at once, the
-    cooperative launch is refused, and that is printed."""
+def time_split_rule(case, dtype=torch.float32) -> None:
+    """``decode_attention`` with the split count its rule picks (fp32:
+    ``decode_attention.decode_splits``, bf16: ``decode_bf16_splits``, a
+    block per SM) against half and twice as many splits, on the same
+    inputs, so that the rule is checked on every run.  Twice is left out
+    where it would give a split no tile; where it asks for more blocks than
+    the card holds at once, the cooperative launch is refused, and that is
+    printed."""
     flush = torch.empty(256 * 2**20 // 4, device="cuda")
     B, W, H, K, hd, _, window, _ = case
-    q, k, v, sp, pos = decode_inputs(case)
-    tiles = -(-W // da.TILE)
-    chosen = da.decode_splits(B * K, W)[0]
+    bf16 = dtype == torch.bfloat16
+    kernel = "decode_attention_bf16" if bf16 else "decode_attention"
+    rule = "decode_bf16_splits" if bf16 else "decode_splits"
+    q, k, v, sp, pos = decode_inputs(case, dtype)
+    tiles = -(-W // (da.BF16_TILE if bf16 else da.TILE))
+    chosen = split_rule(case, bf16)[0]
     times = []
     for splits in (max(1, chosen // 2), chosen, 2 * chosen):
         if splits > tiles:
             continue
         split = (splits, -(-tiles // splits))
-        with mock.patch.object(da, "decode_splits", lambda *_: split), \
+        with mock.patch.object(da, rule, lambda *_: split), \
                 mock.patch.dict(da._plans, clear=True):
             try:
                 times.append((split, time_ms(lambda: da.decode_attention(
                     q, k, v, sp, pos, window=window), flush)))
             except RuntimeError as e:
-                print(f"  {'decode_attention':17s} {splits} splits: {e}")
-    print(f"  {'decode_attention':17s} {'-'.join(map(str, case))} splits: "
+                print(f"  {kernel:17s} {splits} splits: {e}")
+    print(f"  {kernel:17s} {'-'.join(map(str, case))} splits: "
           + ", ".join(f"{n} (at most {p} tiles) -> {t * 1e3:.2f} us"
                       for (n, p), t in times)
           + f" (the rule picks {chosen})")
@@ -2128,6 +2184,7 @@ def print_serving_profile(kernels, wall_us, label) -> None:
     groups = {"flash_attention": ("flash_attention_kernel",),
               "rglru_scan": ("scan_kernel", "chunk_summary_kernel"),
               "decode_attention": ("decode_attention_kernel",),
+              "decode_attention_bf16": ("decode_attention_bf16_kernel",),
               "matrix products": ("gemm", "nvjet")}
     shares = {name: sum(e.self_device_time_total for e in kernels
                         if any(k in e.key.lower() for k in keys))
@@ -4479,7 +4536,7 @@ def phase_moe_serving() -> dict:
     errs = dict(flash_attention=check_attention_against_plain(
                     [ATTN_MOE])["fp32"],
                 decode_attention=check_decode_against_plain(
-                    [(DECODE_MOE, False)]))
+                    [(DECODE_MOE, False)])["fp32"])
     timing = dict(flash_attention=time_attention(ATTN_MOE),
                   decode_attention=time_decode(DECODE_MOE))
     print(f"(e) {time.perf_counter() - t0:.1f} s")
@@ -4683,7 +4740,7 @@ def phase_vlm() -> dict:
     act_dtype=torch.bfloat16)``) through ``serve.generate``: B=2, 256
     patches and 3,840 tokens, 32 greedy tokens, peak memory under 80 GB;
     then a counted prefill (48 ``flash_attention_bf16`` launches) and
-    TEACHER_STEPS teacher-forced decode steps (48 ``decode_attention``
+    TEACHER_STEPS teacher-forced decode steps (48 ``decode_attention_bf16``
     each), a profiled decode step, and the kernel route against the plain
     route held to the bf16 yardstick (``hold_to_bf16``).  Returns the
     counted launches, times and peak."""
@@ -4711,7 +4768,7 @@ def phase_vlm() -> dict:
     peak = torch.cuda.max_memory_allocated()
     tokens = res["tokens"]
     want = expect(flash_attention_bf16=VLM_LAYERS,
-                  decode_attention=VLM_LAYERS * (SERVE_GEN - 1))
+                  decode_attention_bf16=VLM_LAYERS * (SERVE_GEN - 1))
     print(f"generate B={SERVE_BATCH}, {cfg.num_prefix_embeds} patches + "
           f"{VLM_PROMPT - cfg.num_prefix_embeds} tokens, {SERVE_GEN} greedy "
           f"tokens: prefill {res['prefill_s']:.3f} s, decode "
@@ -4733,7 +4790,7 @@ def phase_vlm() -> dict:
     decode = teacher_forced(model, params, state, follow)
     torch.cuda.synchronize()
     dec = counts()
-    check(dec == expect(decode_attention=VLM_LAYERS * TEACHER_STEPS),
+    check(dec == expect(decode_attention_bf16=VLM_LAYERS * TEACHER_STEPS),
           f"InternVL2 decode launch counts {dec}")
     check(logits.dtype == bf and all(t.dtype == bf for t in decode)
           and state["scanned"]["k"].dtype == bf, "bf16 logits and cache")
@@ -4774,7 +4831,7 @@ def phase_vlm_card_vs_cpu() -> dict:
     torch.cuda.synchronize()
     cut = counts()
     want = expect(flash_attention_bf16=VLM_CPU_LAYERS,
-                  decode_attention=VLM_CPU_LAYERS * CPU_STEPS)
+                  decode_attention_bf16=VLM_CPU_LAYERS * CPU_STEPS)
     check(cut == want, f"InternVL2 cut launch counts {cut} != {want}")
     plain = served(Model(cfg, impl="naive", param_dtype=bf, act_dtype=bf),
                    params, batch, follow)
@@ -4842,15 +4899,17 @@ def phase_frontends() -> dict:
     out["errs"] = dict(
         flash_attention=check_attention_against_plain([ATTN_WHISPER])["fp32"],
         decode_attention=check_decode_against_plain([(DECODE_WHISPER,
-                                                      False)]),
+                                                      False)])["fp32"],
         flash_attention_bf16=check_attention_against_plain(
-            [ATTN_VLM + ("bf16",)])["bf16"])
-    check_decode_against_plain([(DECODE_VLM, True)])
+            [ATTN_VLM + ("bf16",)])["bf16"],
+        decode_attention_bf16=check_decode_against_plain(
+            [(DECODE_VLM, True)])["bf16"])
     out["timing"] = dict(
         whisper_flash=time_attention(ATTN_WHISPER),
         whisper_decode=time_decode(DECODE_WHISPER),
         vlm_flash=time_attention(ATTN_VLM, torch.bfloat16),
         vlm_decode=time_decode(DECODE_VLM, torch.bfloat16))
+    time_split_rule(DECODE_VLM, torch.bfloat16)
     print(f"kernels {time.perf_counter() - t0:.1f} s")
     out["launches"] = {k: out["whisper"]["launches"][k]
                        + out["vlm"]["launches"][k] + cut[k] for k in cut}
@@ -4875,9 +4934,12 @@ MESH_TOKEN_PROMPT = 128            # the fp32-activation greedy run's prompt
 MESH_TOKEN_GEN = 2                 # ... and its greedy steps (a step took
                                    # 1.3-1.6 s a rank beside phase 14)
 # (b)'s prefill attention on one rank: Qwen1.5-MoE's 16 heads over 16, 4
-# local heads over 4, bf16
+# local heads over 4, bf16; and its decode attention over the 2,048-slot
+# ring, the prompt's 1,024 positions and the first token's written
 ATTN_MESH_LOCAL = (MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_PROMPT,
                    4, 4, 128, True, 0)
+DECODE_MESH_LOCAL = (MESH_SERVE_BATCH, MESH_RING, 4, 4, 128,
+                     MESH_SERVE_PROMPT, 0, "prefix")
 MESH_SEED = 0                      # ``sharding.init_keyed``'s draws
 MESH19_TIMEOUT_S = 900
 
@@ -5323,13 +5385,13 @@ def check_mesh_model(refs, ranks, spawn_s, rc, out, err) -> dict:
           f"step is {a['worst_update']:.3f} of its allowance off the "
           "single-device step's")
     print(f"  phase 19 rank times (s): {[r['times'] for r in ranks]}")
-    launched = {"flash_attention_bf16": 0, "decode_attention": 0}
+    launched = {"flash_attention_bf16": 0, "decode_attention_bf16": 0}
     for rules_name in ("default", "expert_parallel"):
         for r in ranks:
             res = r[rules_name]
             label = f"(b) {rules_name}, rank {r['rank']}"
             want = expect(flash_attention_bf16=MOE_LAYERS,
-                          decode_attention=MOE_LAYERS * MESH_SERVE_GEN)
+                          decode_attention_bf16=MOE_LAYERS * MESH_SERVE_GEN)
             check(res["launches"] == want, f"{label}: launches "
                   f"{res['launches']} != {want}")
             check(torch.equal(res["tokens32"], refs["tokens32"]),
@@ -5506,7 +5568,9 @@ def main(argv=None) -> int:
         time_warps_rule(case)
     errs["rglru_scan"] = check_scan_against_plain()
     timing["rglru_scan"] = time_scan()
-    errs["decode_attention"] = check_decode_against_plain()
+    decode_errs = check_decode_against_plain()
+    errs["decode_attention"] = decode_errs["fp32"]
+    errs["decode_attention_bf16"] = decode_errs["bf16"]
     time_decode(DECODE_SERVING)
     timing["decode_attention"] = time_decode(DECODE_GLM)
     time_decode(DECODE_CLI)
@@ -5620,6 +5684,8 @@ def main(argv=None) -> int:
     for name, n in meshed19.items():
         launches[name] += n
     time_attention(ATTN_MESH_LOCAL, torch.bfloat16)
+    time_decode(DECODE_MESH_LOCAL, torch.bfloat16)
+    time_split_rule(DECODE_MESH_LOCAL, torch.bfloat16)
     print(f"phase 19: {time.perf_counter() - t0:.1f} s after phase 14")
 
     print("== phase 15: the transformer's training half (its part (d) ran "
@@ -5655,10 +5721,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fronts = phase_frontends()
     for name in ("flash_attention", "flash_attention_bf16",
-                 "decode_attention"):
+                 "decode_attention", "decode_attention_bf16"):
         launches[name] += fronts["launches"][name]
         errs[name] = max(errs[name], fronts["errs"][name])
     timing["flash_attention_bf16"] = fronts["timing"]["vlm_flash"]
+    timing["decode_attention_bf16"] = fronts["timing"]["vlm_decode"]
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s on {card_line()}")

@@ -13,7 +13,8 @@
   b_t`` (``csrc/rglru_scan.cu``).
 * ``decode_attention`` — one-token GQA attention over the ring KV cache,
   the decode attention of the transformer stack
-  (``csrc/decode_attention.cu``).
+  (``csrc/decode_attention.cu`` in fp32, ``csrc/decode_attention_bf16.cu``
+  in bf16; the bf16 kernels fill their rings by TMA, ``csrc/tma.cuh``).
 * ``build``          — ``nvcc`` build at first use, bound with ``ctypes``.
 * ``grad_guard``     — the attention and scan wrappers' refusal of
   autograd on the card (the kernels have no backward).

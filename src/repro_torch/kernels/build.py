@@ -22,7 +22,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("segment_aggregate", "cloud_aggregate", "weighted_mean",
            "segment_sum", "flash_attention", "flash_attention_bf16",
-           "rglru_scan", "decode_attention")
+           "rglru_scan", "decode_attention", "decode_attention_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,7 +5,8 @@
 // over the slots w that count: 0 <= slot_pos[w] <= pos and, with a window,
 // pos - slot_pos[w] < window.  When no slot counts, every score is the
 // finite NEG_INF and the softmax is uniform: o is the mean of v over all W
-// slots, as in the reference.
+// slots, as in the reference.  fp32 operands; the bf16 path is
+// decode_attention_bf16.cu.
 //
 // Replaces the TPU kernel decode_attention_bk
 // (src/repro/kernels/decode_attention.py:66, wrapper
@@ -42,13 +43,12 @@
 //   on its way.  The copies are issued by the copying warp alone, which
 //   fills the buffers in turn and refills one once every compute warp has
 //   arrived on its "empty" mbarrier: a bulk copy waits for the copy
-//   engine's queue (~25 ns a row), and no compute warp waits with it.  Rows of slots that do not count are not copied; the scores of
-//   those slots are masked and V's B fragment reads 0 there, so what the
-//   buffer held before never reaches the output.  (bf16 rows that are not
-//   16-byte multiples are copied by every thread, 8 bytes at a time.)
+//   engine's queue (~25 ns a row), and no compute warp waits with it.
+//   Rows of slots that do not count are not copied; the scores of those
+//   slots are masked and V's B fragment reads 0 there, so what the buffer
+//   held before never reaches the output.
 //   Products.  Tensor cores, mma.sync m16n8k8 TF32, in split-TF32 (x = hi +
-//   lo; hi hi + hi lo + lo hi, fp32 accumulation; a bf16 value is exact in
-//   TF32, so only P's lo adds products there).  The g query heads are the
+//   lo; hi hi + hi lo + lo hi, fp32 accumulation).  The g query heads are the
 //   M rows (zero rows pad g to 16; two m-tiles at g = 32).  S = Q K^T: the
 //   W warps of an m-tile split the head dim's k-steps and keep their query
 //   fragments in registers for the whole kernel; their partial scores meet
@@ -85,7 +85,7 @@
 // asks for at most one per SM).  Registers: ptxas holds a 9-warp block to
 // 168 a thread (warps are allocated four at a time); S keeps two
 // accumulators a group (hi hi, and both cross terms), and no instantiation
-// spills (chip_smoke.py phase 1 checks all 12).
+// spills (chip_smoke.py phase 1 checks all 6).
 //
 // Measured by chip_smoke.py phase 2's time_decode on an NVIDIA H100 80GB
 // HBM3 at 700 W (CUDA-event medians of 100 launches, a 256 MB flush before
@@ -97,7 +97,6 @@
 // split by phase and the other runs.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -113,39 +112,35 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const int* slot_pos;
   const int* pos;
-  void* o;
+  float* o;
   float* ws;                       // the blocks' partials: acc rows, m, l
   int* counters;                   // a 64-bit (generation, count) per (batch, KV head)
   int64_t W, K, H;
   int64_t q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sp_s, window;
-  int g, hd, splits, n_my_max, wide;
+  int g, hd, splits, n_my_max;
 };
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Row stride of a K or V tile in shared memory, in elements: 4 words past a
+// Row stride of a K or V tile in shared memory, in floats: 4 words past a
 // multiple of 32 banks, so that the fragment loads of both products (K:
 // slot = lane / 4, column = lane % 4; V: slots 2 (lane % 4) and + 1, column
 // lane / 4) fall on 32 distinct banks.
-template <typename T>
-__host__ __device__ constexpr int ring_ld(int hd) {
-  return sizeof(T) == 4 ? round_up(hd, 32) + 4 : round_up(hd, 64) + 8;
-}
+__host__ __device__ constexpr int ring_ld(int hd) { return round_up(hd, 32) + 4; }
 
-template <typename T, int MT, int NT>
+template <int MT, int NT>
 struct Cfg {
   static constexpr int WARPS = 8;                  // compute warps; one more copies
   static constexpr int THREADS = 32 * (WARPS + 1);
   static constexpr int W = WARPS / MT;           // warps of an m-tile
   static constexpr int PER_WARP = (NT + W - 1) / W;   // most k-steps of S, and most
                                                     // 8-column tiles of P V, a warp takes
-  static constexpr int STAGES = NT * (int)sizeof(T) >= 128 ? 2 : 4;
-  static constexpr bool EXACT = sizeof(T) == 2;     // bf16 is exact in TF32
+  static constexpr int STAGES = NT * 4 >= 128 ? 2 : 4;
 };
 
 // Small per-block arrays: the ring's K, V and empty barriers; the tile max of
@@ -163,13 +158,13 @@ struct Misc {
 // group][lane] float4s); P's A fragments of one tile ([m-tile][group][hi,
 // lo][lane] uint4s); a region that holds the K/V ring, then (with one
 // split) the block's partial acc[g][hd]; the tile masks; Misc.
-template <typename T, int MT, int NT>
+template <int MT, int NT>
 struct Layout {
   int pf, region, masks, misc, total;
   __host__ __device__ Layout(int hd, int g, int n_my) {
-    const int ring = Cfg<T, MT, NT>::STAGES * 2 * TILE * ring_ld<T>(hd) * (int)sizeof(T);
+    const int ring = Cfg<MT, NT>::STAGES * 2 * TILE * ring_ld(hd) * 4;
     const int merge = 4 * g * hd;
-    pf = Cfg<T, MT, NT>::WARPS * 4 * 32 * 16;
+    pf = Cfg<MT, NT>::WARPS * 4 * 32 * 16;
     region = pf + MT * 4 * 64 * 16;
     masks = region + round_up(ring > merge ? ring : merge, 16);
     misc = masks + round_up(4 * n_my, 16);
@@ -177,25 +172,8 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v.x, v.y);
-  q[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 __device__ __forceinline__ void add4(float4& a, float w, float4 v) {
   a.x = fmaf(w, v.x, a.x);
@@ -225,42 +203,28 @@ __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uin
 }
 
 // c[0] += Ah Bh and c[1] += Ah Bl + Al Bh: the split-TF32 terms of A B in
-// two accumulators, two independent chains (the terms an exact operand
-// lacks are skipped).  A's parts in ah / al, B's (b0, b1) as floats.
-template <bool A_EXACT, bool B_EXACT>
+// two accumulators, two independent chains.  A's parts in ah / al, B's
+// (b0, b1) as floats.
 __device__ __forceinline__ void mma3(float (&c)[2][4], const uint4& ah, const uint4& al,
                                      float b0, float b1) {
-  if constexpr (B_EXACT) {
-    const uint32_t h0 = __float_as_uint(b0), h1 = __float_as_uint(b1);
-    mma(c[0], ah.x, ah.y, ah.z, ah.w, h0, h1);
-    if constexpr (!A_EXACT) mma(c[1], al.x, al.y, al.z, al.w, h0, h1);
-  } else {
-    uint32_t h0, l0, h1, l1;
-    split(b0, h0, l0);
-    split(b1, h1, l1);
-    mma(c[0], ah.x, ah.y, ah.z, ah.w, h0, h1);
-    mma(c[1], ah.x, ah.y, ah.z, ah.w, l0, l1);
-    if constexpr (!A_EXACT) mma(c[1], al.x, al.y, al.z, al.w, h0, h1);
-  }
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma(c[0], ah.x, ah.y, ah.z, ah.w, h0, h1);
+  mma(c[1], ah.x, ah.y, ah.z, ah.w, l0, l1);
+  mma(c[1], al.x, al.y, al.z, al.w, h0, h1);
 }
 
 // acc += P V in split-TF32, the terms in one accumulator (the column tiles
-// are independent chains already).  P's parts in ph / pl; V's exact in bf16.
-template <bool V_EXACT>
+// are independent chains already).  P's parts in ph / pl.
 __device__ __forceinline__ void mma_pv(float (&acc)[4], const uint4& ph, const uint4& pl,
                                        float b0, float b1) {
-  if constexpr (V_EXACT) {
-    const uint32_t h0 = __float_as_uint(b0), h1 = __float_as_uint(b1);
-    mma(acc, pl.x, pl.y, pl.z, pl.w, h0, h1);
-    mma(acc, ph.x, ph.y, ph.z, ph.w, h0, h1);
-  } else {
-    uint32_t h0, l0, h1, l1;
-    split(b0, h0, l0);
-    split(b1, h1, l1);
-    mma(acc, pl.x, pl.y, pl.z, pl.w, h0, h1);
-    mma(acc, ph.x, ph.y, ph.z, ph.w, l0, l1);
-    mma(acc, ph.x, ph.y, ph.z, ph.w, h0, h1);
-  }
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma(acc, pl.x, pl.y, pl.z, pl.w, h0, h1);
+  mma(acc, ph.x, ph.y, ph.z, ph.w, l0, l1);
+  mma(acc, ph.x, ph.y, ph.z, ph.w, h0, h1);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -304,42 +268,21 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
 // tile's slots that count, one bulk copy a row and a lane of the copying
 // warp, completing on kbar (vbar) with the bytes lane 0 announced.  Rows
 // of slots that do not count are not copied: what they hold is never used
-// (scores are masked, V's B fragment reads 0 there).  Without `wide` (bf16
-// rows that are not 16-byte multiples), the warp copies 8 bytes a lane at
-// a time and then arrives.  Called by the copying warp.
-template <typename T>
-__device__ __forceinline__ void fill_tile(T* kd, T* vd, uint64_t* kbar, uint64_t* vbar,
-                                          const T* kb, const T* vb, int64_t row0,
-                                          unsigned mask, const Params& p, int ld, bool wide) {
-  const int hd = p.hd, lane = threadIdx.x & 31;
-  if (wide) {
-    const unsigned bytes = hd * (unsigned)sizeof(T);
-    if (lane == 0) {
-      mbar_expect(kbar, __popc(mask) * bytes);
-      mbar_expect(vbar, __popc(mask) * bytes);
-    }
-    __syncwarp();
-    if ((mask >> lane) & 1u) {
-      bulk_copy(kd + lane * ld, kb + (row0 + lane) * p.k_ss, bytes, kbar);
-      bulk_copy(vd + lane * ld, vb + (row0 + lane) * p.v_ss, bytes, vbar);
-    }
-  } else {
-    const int per_row = hd / 4;
-    for (int i = lane; i < 2 * TILE * per_row; i += 32) {
-      const int kv = i >= TILE * per_row;
-      const int j = kv ? i - TILE * per_row : i;
-      const int r = j / per_row, c = 4 * (j - r * per_row);
-      if ((mask >> r) & 1u) {
-        const T* src = kv ? vb + (row0 + r) * p.v_ss + c : kb + (row0 + r) * p.k_ss + c;
-        *reinterpret_cast<uint2*>((kv ? vd : kd) + r * ld + c) =
-            *reinterpret_cast<const uint2*>(src);
-      }
-    }
-    __syncwarp();
-    if (lane == 0) {
-      mbar_arrive(kbar);
-      mbar_arrive(vbar);
-    }
+// (scores are masked, V's B fragment reads 0 there).  Called by the
+// copying warp.
+__device__ __forceinline__ void fill_tile(float* kd, float* vd, uint64_t* kbar, uint64_t* vbar,
+                                          const float* kb, const float* vb, int64_t row0,
+                                          unsigned mask, const Params& p, int ld) {
+  const int lane = threadIdx.x & 31;
+  const unsigned bytes = p.hd * 4u;
+  if (lane == 0) {
+    mbar_expect(kbar, __popc(mask) * bytes);
+    mbar_expect(vbar, __popc(mask) * bytes);
+  }
+  __syncwarp();
+  if ((mask >> lane) & 1u) {
+    bulk_copy(kd + lane * ld, kb + (row0 + lane) * p.k_ss, bytes, kbar);
+    bulk_copy(vd + lane * ld, vb + (row0 + lane) * p.v_ss, bytes, vbar);
   }
 }
 
@@ -369,31 +312,31 @@ __device__ __forceinline__ void fold(float& m, float& l, float4& a, float mx, fl
 
 // Row j, columns c..c+3 of the output from its merged (M, L, acc); if no
 // slot counts (M = NEG_INF), the mean of V over all W slots.
-template <typename T>
-__device__ __forceinline__ void write_out(T* o, int hd, int j, int c, float4 a, float M, float L,
-                                          const T* vb, int64_t W, int64_t v_ss) {
+__device__ __forceinline__ void write_out(float* o, int hd, int j, int c, float4 a, float M,
+                                          float L, const float* vb, int64_t W, int64_t v_ss) {
   if (M == NEG_INF) {
     a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int64_t w = 0; w < W; ++w) add4(a, 1.f, load4(vb + w * v_ss + c));
     L = (float)W;
   }
   const float inv = 1.f / fmaxf(L, 1e-30f);
-  store4(o + j * hd + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
+  *reinterpret_cast<float4*>(o + j * hd + c) =
+      make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
 }
 
-template <typename T, int MT, int NT>
-__global__ void __launch_bounds__(Cfg<T, MT, NT>::THREADS, 1)
+template <int MT, int NT>
+__global__ void __launch_bounds__(Cfg<MT, NT>::THREADS, 1)
 decode_attention_kernel(const Params p) {
-  using C = Cfg<T, MT, NT>;
+  using C = Cfg<MT, NT>;
   constexpr int W = C::W;
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = p.g, hd = p.hd, S = p.splits;
-  const Layout<T, MT, NT> lay(hd, g, p.n_my_max);
+  const Layout<MT, NT> lay(hd, g, p.n_my_max);
   const int hdp = round_up(hd, 8), ks_n = hdp / 8, hd4 = hd / 4;
-  const int ld = ring_ld<T>(hd);
+  const int ld = ring_ld(hd);
   float4* sps = reinterpret_cast<float4*>(smem);
   uint4* pf = reinterpret_cast<uint4*>(smem + lay.pf);
-  T* ring = reinterpret_cast<T*>(smem + lay.region);
+  float* ring = reinterpret_cast<float*>(smem + lay.region);
   unsigned* masks = reinterpret_cast<unsigned*>(smem + lay.masks);
   Misc& ms = *reinterpret_cast<Misc*>(smem + lay.misc);
 
@@ -406,10 +349,9 @@ decode_attention_kernel(const Params p) {
   const int split_x = blockIdx.x;
   const int64_t n_tiles = (p.W + TILE - 1) / TILE;
   const int n_my = (int)((n_tiles - 1 - split_x) / S + 1);
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + kh * g * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
-  const bool wide = p.wide != 0;
+  const float* qb = p.q + b * p.q_sb + kh * g * p.q_sh;
+  const float* kb = p.k + b * p.k_sb + kh * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + kh * p.v_sh;
 
   // This warp's k-steps of S are wi, wi + W, ...; their query A fragments
   // stay in registers, split into TF32 hi and lo: rows r = 16 mt + gq and
@@ -422,7 +364,7 @@ decode_attention_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = mt * 16 + gq + 8 * (i & 1), d = kk * 8 + tq + 4 * (i >> 1);
-      qx[k][i] = (kk < ks_n && r < g && d < hd) ? to_float(qb[r * p.q_sh + d]) : 0.f;
+      qx[k][i] = (kk < ks_n && r < g && d < hd) ? qb[r * p.q_sh + d] : 0.f;
     }
   }
 
@@ -456,7 +398,7 @@ decode_attention_kernel(const Params p) {
   if (hdp > hd) {                                // zero columns hd..hdp of every ring row
     for (int i = tid; i < C::STAGES * 2 * TILE * (hdp - hd); i += C::THREADS) {
       const int r = i / (hdp - hd);
-      ring[r * ld + hd + (i - r * (hdp - hd))] = T(0.f);
+      ring[r * ld + hd + (i - r * (hdp - hd))] = 0.f;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
@@ -475,9 +417,9 @@ decode_attention_kernel(const Params p) {
     for (int jl = next_tile(masks, 0, n_my); jl < n_my; jl = next_tile(masks, jl + 1, n_my), ++it) {
       const int buf = it % C::STAGES;
       if (it >= C::STAGES) mbar_wait(&ms.ebar[buf], (it / C::STAGES - 1) & 1);
-      T* kd = ring + 2 * buf * TILE * ld;
+      float* kd = ring + 2 * buf * TILE * ld;
       fill_tile(kd, kd + TILE * ld, &ms.kbar[buf], &ms.vbar[buf], kb, vb,
-                ((int64_t)split_x + (int64_t)jl * S) * TILE, masks[jl], p, ld, wide);
+                ((int64_t)split_x + (int64_t)jl * S) * TILE, masks[jl], p, ld);
     }
   } else {
     uint4 qh[C::PER_WARP], ql[C::PER_WARP];
@@ -503,8 +445,8 @@ decode_attention_kernel(const Params p) {
       const int buf = it % C::STAGES;
       const unsigned phase = (it / C::STAGES) & 1;
       const unsigned tmask = masks[jc];
-      const T* ks = ring + 2 * buf * TILE * ld;
-      const T* vs = ks + TILE * ld;
+      const float* ks = ring + 2 * buf * TILE * ld;
+      const float* vs = ks + TILE * ld;
       mbar_wait(&ms.kbar[buf], phase);             // this tile's K
       {
         // This warp's k-steps of S = Q K^T for all 32 slots: group n's
@@ -516,8 +458,8 @@ decode_attention_kernel(const Params p) {
           if (kk < ks_n) {
 #pragma unroll
             for (int n = 0; n < 4; ++n) {
-              const T* kr = ks + (8 * n + gq) * ld + 8 * kk + tq;
-              mma3<C::EXACT, C::EXACT>(e[n], qh[k], ql[k], to_float(kr[0]), to_float(kr[4]));
+              const float* kr = ks + (8 * n + gq) * ld + 8 * kk + tq;
+              mma3(e[n], qh[k], ql[k], kr[0], kr[4]);
             }
           }
         }
@@ -605,13 +547,12 @@ decode_attention_kernel(const Params p) {
         if (!km) continue;                         // those 8 slots: P = 0
         const bool w0 = (km >> (2 * tq)) & 1u, w1 = (km >> (2 * tq + 1)) & 1u;
         const uint4 ph = mt_pf[n * 64 + lane], pl = mt_pf[n * 64 + 32 + lane];
-        const T* vr = vs + (8 * n + 2 * tq) * ld + gq;
+        const float* vr = vs + (8 * n + 2 * tq) * ld + gq;
 #pragma unroll
         for (int i = 0; i < C::PER_WARP; ++i) {
           const int j = wi + i * W;
           if (j < nt_n) {
-            mma_pv<C::EXACT>(acc[i], ph, pl, w0 ? to_float(vr[8 * j]) : 0.f,
-                             w1 ? to_float(vr[8 * j + ld]) : 0.f);
+            mma_pv(acc[i], ph, pl, w0 ? vr[8 * j] : 0.f, w1 ? vr[8 * j + ld] : 0.f);
           }
         }
       }
@@ -664,7 +605,7 @@ decode_attention_kernel(const Params p) {
   }
 
   __syncthreads();
-  T* o = static_cast<T*>(p.o) + (b * p.H + kh * g) * hd;
+  float* o = p.o + (b * p.H + kh * g) * hd;
   if (S == 1) {                                  // the block's partial is the answer
     for (int e = tid; e < g * hd4; e += C::THREADS) {
       const int j = e / hd4, c = 4 * (e - j * hd4);
@@ -739,16 +680,19 @@ decode_attention_kernel(const Params p) {
   }
 }
 
-template <typename T, int MT, int NT>
+template <int MT, int NT>
 int launch(const Params& p, int64_t BK, int device, cudaStream_t stream) {
-  using C = Cfg<T, MT, NT>;
-  const Layout<T, MT, NT> lay(p.hd, p.g, p.n_my_max);
+  using C = Cfg<MT, NT>;
+  const Layout<MT, NT> lay(p.hd, p.g, p.n_my_max);
   static int smem_set[MAX_DEVICES] = {};
   if (lay.total > smem_set[device]) {
-    const cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T, MT, NT>,
+    const cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<MT, NT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                lay.total);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();                        // (not left for the next call to read)
+      return (int)e;
+    }
     smem_set[device] = lay.total;
   }
   cudaLaunchConfig_t cfg = {};
@@ -761,34 +705,25 @@ int launch(const Params& p, int64_t BK, int device, cudaStream_t stream) {
   attr[0].val.cooperative = p.splits > 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_attention_kernel<T, MT, NT>, p);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_attention_kernel<MT, NT>, p);
   const cudaError_t last = cudaGetLastError();   // (and clears a refused launch's error)
   return (int)(e != cudaSuccess ? e : last);
 }
 
-template <typename T, int NT>
+template <int NT>
 int by_group(const Params& p, int64_t BK, int device, cudaStream_t stream) {
-  return p.g <= 16 ? launch<T, 1, NT>(p, BK, device, stream)
-                   : launch<T, 2, NT>(p, BK, device, stream);
-}
-
-template <typename T>
-int by_head_dim(const Params& p, int64_t BK, int device, cudaStream_t stream) {
-  if (p.hd <= 64) return by_group<T, 8>(p, BK, device, stream);
-  if (p.hd <= 128) return by_group<T, 16>(p, BK, device, stream);
-  return by_group<T, 32>(p, BK, device, stream);
+  return p.g <= 16 ? launch<1, NT>(p, BK, device, stream)
+                   : launch<2, NT>(p, BK, device, stream);
 }
 
 }  // namespace
 
 // q: (B, 1, H, hd) with (batch, head) strides q_sb, q_sh; k and v: (B, W,
-// K, hd) with (batch, slot, head) strides; all with a contiguous last
-// dimension, all fp32 (is_bf16 = 0) or all bf16 (1); hd a multiple of 4, at
-// most 256; g = H / K at most 32; every stride a multiple of 4 and every
-// pointer 16-byte aligned; wide = 1 lets bf16 rows be copied 16 bytes at a
-// time (hd and the k and v strides multiples of 8).  slot_pos: (W,) int32
-// with stride sp_s; pos: one int32, both in device memory.  o: (B, 1, H,
-// hd) contiguous, of q's type.  The slots are dealt in 32-slot tiles to
+// K, hd) with (batch, slot, head) strides; all fp32 with a contiguous last
+// dimension; hd a multiple of 4, at most 256; g = H / K at most 32; every
+// stride a multiple of 4 and every pointer 16-byte aligned.  slot_pos:
+// (W,) int32 with stride sp_s; pos: one int32, both in device memory.  o:
+// (B, 1, H, hd) contiguous fp32.  The slots are dealt in 32-slot tiles to
 // `splits` blocks per (batch, KV head) (at most MAX_TILES_PER_SPLIT tiles
 // a split; with splits > 1 the launch is cooperative, so all B * K * splits
 // blocks must fit on the card at once).  ws: fp32 workspace of B * K *
@@ -803,8 +738,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int64_t hd, int64_t q_sb, int64_t q_sh, int64_t k_sb,
                                 int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                 int64_t v_sh, int64_t sp_s, int64_t window, int64_t splits,
-                                int wide, int is_bf16, int device,
-                                void* stream) {
+                                int device, void* stream) {
   const int64_t g = H / K;
   const int64_t n_tiles = (W + TILE - 1) / TILE;
   if (device < 0 || device >= MAX_DEVICES || hd % 4 || hd <= 0 || hd > MAX_HD || g < 1 ||
@@ -818,12 +752,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return (int)e;
   }
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
   p.slot_pos = static_cast<const int*>(slot_pos);
   p.pos = static_cast<const int*>(pos);
-  p.o = o;
+  p.o = static_cast<float*>(o);
   p.ws = static_cast<float*>(ws);
   p.counters = static_cast<int*>(counters);
   p.W = W;
@@ -843,8 +777,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   p.hd = (int)hd;
   p.splits = (int)splits;
   p.n_my_max = (int)((n_tiles + splits - 1) / splits);
-  p.wide = wide;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? by_head_dim<__nv_bfloat16>(p, B * K, device, s)
-                 : by_head_dim<float>(p, B * K, device, s);
+  if (hd <= 64) return by_group<8>(p, B * K, device, s);
+  if (hd <= 128) return by_group<16>(p, B * K, device, s);
+  return by_group<32>(p, B * K, device, s);
 }

@@ -94,11 +94,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tma.cuh"
+
 namespace {
 
-constexpr int BK = 64;                 // keys per tile
-constexpr int PANEL = 64;              // bf16 columns of one 128-byte swizzled row
-constexpr int PANEL_BYTES = 64 * 128;  // 64 rows of a panel
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
+
+constexpr int BK = tma::BOX_ROWS;      // keys per tile
+constexpr int PANEL = tma::PANEL;      // bf16 columns of one 128-byte swizzled row
+constexpr int PANEL_BYTES = tma::PANEL_BYTES;  // 64 rows of a panel
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -120,68 +128,11 @@ constexpr int smem_bytes() {
   return 1024 + NWG * C::TILE_BYTES + 2 * C::STAGES * C::TILE_BYTES + 3 * C::STAGES * 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // wgmma's shared-memory descriptor for a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (16-byte units), layout 1.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.  A
-// phase that never completes (a fault in the pipeline) traps after 10 s
-// instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint64_t t0 = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls % 1024 == 0) {
-      const uint64_t t = global_ns();
-      if (t0 == 0) {
-        t0 = t;
-      } else if (t - t0 > 10000000000ull) {
-        __trap();
-      }
-    }
-  }
-}
-
-// One TMA box of the 4-d map (hd, heads, keys, batch) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -410,13 +361,13 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap k_map,
         mbar_expect_tx(full_k + 8 * s, TILE);
 #pragma unroll
         for (int p = 0; p < C::PANELS; ++p)
-          tma_load(smem_u32(ks + s * TILE + p * PANEL_BYTES), &k_map, full_k + 8 * s,
-                   p * PANEL, (int)kh, k0, (int)b);
+          tma::load_box(smem_u32(ks + s * TILE + p * PANEL_BYTES), &k_map, full_k + 8 * s,
+                        p * PANEL, (int)kh, k0, (int)b);
         mbar_expect_tx(full_v + 8 * s, TILE);
 #pragma unroll
         for (int p = 0; p < C::PANELS; ++p)
-          tma_load(smem_u32(vs + s * TILE + p * PANEL_BYTES), &v_map, full_v + 8 * s,
-                   p * PANEL, (int)kh, k0, (int)b);
+          tma::load_box(smem_u32(vs + s * TILE + p * PANEL_BYTES), &v_map, full_v + 8 * s,
+                        p * PANEL, (int)kh, k0, (int)b);
       }
     }
   } else {
@@ -582,48 +533,6 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query, so the library
-// does not link libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (hd, K, Sk, B) view of k or v through its (head, key, batch) strides
-// (elements), in boxes of 64 columns by 64 keys, 128-byte swizzled.
-int make_map(CUtensorMap* map, const void* base, int64_t hd, int64_t K, int64_t Sk, int64_t B,
-             int64_t s_h, int64_t s_s, int64_t s_b) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)K, (cuuint64_t)Sk, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2, (cuuint64_t)s_b * 2};
-  const cuuint32_t box[4] = {PANEL, 1, BK, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int HD, int NWG>
 int launch(const CUtensorMap& km, const CUtensorMap& vm, const void* q, void* o, int64_t B,
            int64_t Sq, int64_t Sk, int64_t H, int64_t K, int hd, int rows, const int64_t* st,
@@ -679,9 +588,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap km, vm;
-  int err = make_map(&km, k, hd, K, Sk, B, k_sh, k_ss, k_sb);
+  int err = tma::make_map(&km, k, hd, K, Sk, B, k_sh, k_ss, k_sb);
   if (err) return err;
-  err = make_map(&vm, v, hd, K, Sk, B, v_sh, v_ss, v_sb);
+  err = tma::make_map(&vm, v, hd, K, Sk, B, v_sh, v_ss, v_sb);
   if (err) return err;
   const int64_t st[3] = {q_sb, q_ss, q_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

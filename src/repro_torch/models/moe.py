@@ -28,7 +28,14 @@ own:
   overflows, as the reference's mesh run does); the FSDP-sharded expert
   weights are all-gathered over 'data', the expert products run on the
   rank's 'model' slice of the experts' hidden dim, and their output is
-  summed over 'model' in the activation dtype;
+  summed over 'model' in the activation dtype.  The decode step's call
+  (``shard_batch=False``: every shard holds the whole batch) keeps the
+  weights sharded instead, as GSPMD partitions the reference's
+  ``apply_moe(mesh=None)``: the router and the gate and up products
+  contract each rank's slice of D with its own rows and sum the
+  partials over the FSDP axis in fp32 (``_split_contract``), and the
+  down product writes the rank's own D columns, summed over 'model',
+  then gathered over the FSDP axis;
 * the expert-parallel one (``_expert_parallel_ffn``, under
   ``EXPERT_PARALLEL_RULES``): the experts shard over 'model' and the
   capacity bins travel to their expert's rank and back by two
@@ -85,15 +92,40 @@ def _one_hot(idx, n: int, dtype):
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def router_probs(router_w, xt):
-    """The router's float32 logits and softmax probabilities, (T, E)."""
-    logits = matmul(xt, router_w).to(torch.float32)
+def _my_slice(t, split, dim: int):
+    """``t``'s slice along ``dim`` that this rank holds when ``dim`` is
+    split evenly over mesh axis ``split = (mesh, axis)``."""
+    mesh, axis = split
+    n = mesh.size(tuple(mesh.mesh_dim_names).index(axis))
+    d = -(-t.shape[dim] // n)          # DTensor's Shard: torch.chunk's
+    start = min(mesh.get_local_rank(axis) * d, t.shape[dim])
+    return t.narrow(dim, start, min(d, t.shape[dim] - start))
+
+
+def _split_contract(a, w_loc, split):
+    """``a @ w`` with D (``a``'s last dim, ``w``'s rows) split over mesh
+    axis ``split = (mesh, axis)``: this rank's slice of ``a`` against its
+    own rows ``w_loc``, the partials summed over the axis in fp32 and the
+    sum cast to the promoted dtype, where the unsplit product rounds."""
+    mesh, axis = split
+    part = matmul(_my_slice(a, split, -1).float(), w_loc)
+    return shd.psum(part, mesh, axis).to(
+        torch.promote_types(a.dtype, w_loc.dtype))
+
+
+def router_probs(router_w, xt, split=None):
+    """The router's float32 logits and softmax probabilities, (T, E);
+    with ``split`` (``_split_contract``), D's contraction split over a
+    mesh axis."""
+    logits = matmul(xt, router_w) if split is None else \
+        _split_contract(xt, _my_slice(router_w, split, 0), split)
+    logits = logits.to(torch.float32)
     return logits, torch.softmax(logits, -1)
 
 
-def _route(cfg, router_w, xt):
+def _route(cfg, router_w, xt, split=None):
     """xt: (T, D) -> gates (T,k), experts (T,k), aux losses."""
-    logits, probs = router_probs(router_w, xt)
+    logits, probs = router_probs(router_w, xt, split)
     top_p, top_e = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     # Switch-style load-balance loss + router z-loss.
@@ -125,11 +157,13 @@ def _dispatch(xt, top_e, k: int, E: int, C: int):
 
 
 def _expert_ffn(cfg, p, buf, E: int, C: int, mesh=None, axis=None,
-                gather_axis=None):
+                gather_axis=None, split_axis=None):
     """buf (E*C+1, D) -> (E*C+1, D), the overflow row's output zeros.  On a
-    mesh: the FSDP-sharded weights all-gathered over ``gather_axis``, the
-    output summed over ``axis`` (tensor parallel) in the activation
-    dtype."""
+    mesh: the FSDP-sharded weights all-gathered over ``gather_axis`` or,
+    with ``split_axis`` instead, kept sharded (the gate and up products
+    through ``_split_contract``, the down product's D columns gathered
+    over the axis at the end); the output summed over ``axis`` (tensor
+    parallel) in the activation dtype."""
     a = act_fn(cfg.act)
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     if gather_axis is not None:  # FSDP all-gather of the embed dim
@@ -137,11 +171,17 @@ def _expert_ffn(cfg, p, buf, E: int, C: int, mesh=None, axis=None,
         wu = shd.all_gather(wu, mesh, gather_axis, 1)
         wd = shd.all_gather(wd, mesh, gather_axis, 2)
     eb = buf[: E * C].reshape(E, C, -1)
-    h = a(matmul(eb, wg)) * matmul(eb, wu)
+    if split_axis is None:
+        h = a(matmul(eb, wg)) * matmul(eb, wu)
+    else:
+        split = (mesh, split_axis)
+        h = a(_split_contract(eb, wg, split)) * _split_contract(eb, wu, split)
     out = matmul(h, wd)
     if axis is not None:
         # reduce in the activation dtype, as the reference does
         out = shd.psum(out.to(buf.dtype), mesh, axis)    # TP reduce
+    if split_axis is not None:
+        out = shd.all_gather(out.to(buf.dtype), mesh, split_axis, 2)
     out = out.reshape(E * C, -1)
     return torch.cat([out, torch.zeros_like(out[:1])], 0)
 
@@ -152,18 +192,24 @@ def _combine(out_buf, dst, top_p, T: int, k: int):
     return y.reshape(T, k, -1).sum(1)
 
 
-def _local_moe(cfg, p, x, expert_step, mesh=None, data_axes=()):
+def _local_moe(cfg, p, x, expert_step, mesh=None, data_axes=(),
+               split_axis=None):
     """The routed experts of one device or one shard.  x: (B, S, D) with
     full D; the capacity from these tokens.  ``expert_step(p, buf, E, C)``
     maps the capacity bins (E*C+1, D) to their outputs: ``_expert_ffn``
     (on a mesh, tensor parallel) or ``_expert_parallel_ffn``.  The aux
-    loss is averaged over ``data_axes``."""
+    loss is averaged over ``data_axes``.  ``split_axis``: the router's
+    contraction split over that mesh axis (``_split_contract``)."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(T, E, k, cfg.capacity_factor)
-    top_p, top_e, aux, z = _route(cfg, p["router"], xt)
+    # (unsplit, ``_route`` keeps the three-argument call that tests and
+    # chip_smoke.py wrap to pin routes)
+    top_p, top_e, aux, z = (
+        _route(cfg, p["router"], xt) if split_axis is None
+        else _route(cfg, p["router"], xt, (mesh, split_axis)))
     buf, dst, _ = _dispatch(xt, top_e, k, E, C)
     y = _combine(expert_step(p, buf, E, C), dst, top_p, T, k)
     aux_total = cfg.router_aux_loss * aux + 1e-3 * z
@@ -199,18 +245,20 @@ def _expert_parallel_ffn(cfg, mesh, p, buf, E: int, C: int):
     return torch.cat([out_buf, torch.zeros_like(out_buf[:1])], 0)
 
 
-def _shard_body(cfg, mesh, data_axes, expert_step, x, router, w_gate, w_up,
-                w_down):
+def _shard_body(cfg, mesh, data_axes, split_axis, expert_step, x, router,
+                w_gate, w_up, w_down):
     """The ``shard_map`` body: ``_local_moe`` on this shard's weights."""
     p = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
-    return _local_moe(cfg, p, x, expert_step, mesh, data_axes)
+    return _local_moe(cfg, p, x, expert_step, mesh, data_axes, split_axis)
 
 
 def _mesh_moe(cfg, p, x, mesh, rules, shard_batch: bool):
     """The routed experts on a mesh, under ``shard_map``: the default
     tensor-parallel body or, under rules with ``expert`` on 'model', the
     expert-parallel one.  ``shard_batch=False`` gathers the batch first
-    (every shard routes all tokens: the capacity of the whole batch)."""
+    (every shard routes all tokens: the capacity of the whole batch), and
+    the tensor-parallel body then splits the router and expert
+    contractions over the FSDP axis instead of gathering the weights."""
     names = tuple(mesh.mesh_dim_names)
     size = dict(zip(names, mesh.shape))
     dp = tuple(a for a in (POD_AXIS, DATA_AXIS) if a in names)
@@ -219,6 +267,7 @@ def _mesh_moe(cfg, p, x, mesh, rules, shard_batch: bool):
     batch = (dp if len(dp) > 1 else (dp[0] if dp else None)) \
         if shard_batch else None
     data_axes = dp if shard_batch else ()
+    split = None
     if rules.get("expert") == MODEL_AXIS:
         w_spec = P(MODEL_AXIS, None, None)
         specs = (w_spec, w_spec, w_spec)
@@ -228,9 +277,11 @@ def _mesh_moe(cfg, p, x, mesh, rules, shard_batch: bool):
         fsdp = fsdp if (fsdp in names and size[fsdp] > 1) else None
         tp = MODEL_AXIS if model_in_mesh else None
         specs = (P(None, fsdp, tp), P(None, fsdp, tp), P(None, tp, fsdp))
+        split = None if shard_batch else fsdp
         step = functools.partial(_expert_ffn, cfg, mesh=mesh, axis=tp,
-                                 gather_axis=fsdp)
-    body = functools.partial(_shard_body, cfg, mesh, data_axes, step)
+                                 gather_axis=None if split else fsdp,
+                                 split_axis=split)
+    body = functools.partial(_shard_body, cfg, mesh, data_axes, split, step)
     pl = functools.partial(shd.placements_for, mesh)
     x_pl = pl(P(batch, None, None))
     ins = (x_pl, pl(P())) + tuple(pl(sp) for sp in specs)

@@ -157,6 +157,102 @@ def test_every_tile_is_dealt_to_one_split(bk, w):
     assert splits == 1 or splits * bk <= da.NUM_SMS
 
 
+@pytest.mark.parametrize("bk,w,g,expected", [
+    (16, 8192, 6, (8, 16)),        # InternVL2-26B: a block per SM
+    (8, 2048, 1, (16, 2)),         # Qwen1.5-MoE-A2.7B's local decode on 1 x 4
+    (2, 2048, 16, (32, 1)),        # RecurrentGemma-9B: one tile a split
+    (128, 128, 1, (1, 2)),         # StableLM-1.6B, the CLI default
+    (4, 512, 32, (8, 1)),          # 32 query heads a KV head: two blocks
+    (1, 65, 6, (2, 1)),            # a ragged last tile
+    (1, 1 << 17, 32, (66, 32)),    # one pair over the longest ring tested
+])
+def test_bf16_split_rule(bk, w, g, expected):
+    """``decode_bf16_splits`` deals 64-slot tiles: a block an SM for each
+    16 query heads of a pair, never more splits than tiles."""
+    splits, per = da.decode_bf16_splits(bk, w, g)
+    assert (splits, per) == expected
+    tiles = -(-w // da.BF16_TILE)
+    assert splits <= tiles and per == -(-tiles // splits)
+
+
+@settings(max_examples=300, deadline=None)
+@given(bk=st.integers(1, 4096), w=st.integers(1, 1 << 17),
+       g=st.integers(1, 32))
+def test_every_bf16_tile_is_dealt_to_one_split(bk, w, g):
+    """The bf16 kernel deals 64-slot tile t to split t % splits: every tile
+    to exactly one split, no split more than one tile above another, at
+    most ``BF16_MAX_TILES_PER_SPLIT`` (the masks a block keeps), and a
+    launch with more than one split at most a block per SM (it is
+    cooperative: all its blocks are resident at once)."""
+    splits, per = da.decode_bf16_splits(bk, w, g)
+    tiles = -(-w // da.BF16_TILE)
+    dealt = [list(range(x, tiles, splits)) for x in range(splits)]
+    assert sorted(t for d in dealt for t in d) == list(range(tiles))
+    sizes = [len(d) for d in dealt]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert max(sizes) == per <= da.BF16_MAX_TILES_PER_SPLIT
+    blocks = splits * bk * da.bf16_head_blocks(g)
+    assert splits == 1 or blocks <= da.NUM_SMS
+
+
+@pytest.mark.parametrize("hd,stages", [(4, 8), (64, 8), (100, 4), (128, 4),
+                                       (200, 2), (256, 2)])
+def test_bf16_stages_keep_128_kb_in_flight(hd, stages):
+    """The ring's stages: K and V tiles of 64 slots at the head-dim class
+    (64, 128, 256) make ``BF16_IN_FLIGHT`` = 128 KB a block, an even
+    number of them (two groups of warps take alternate tiles)."""
+    assert da.decode_bf16_stages(hd) == stages
+    tile = da.BF16_TILE * da.head_dim_class(hd) * 2
+    assert stages * 2 * tile == da.BF16_IN_FLIGHT and stages % 2 == 0
+
+
+@pytest.mark.parametrize("hd,w,splits,expected", [
+    # InternVL2-26B: a 128 KB ring, Q's 16 rows, 16 masks, 4 stages
+    (128, 8192, 8, 1024 + 131072 + 4096 + 8 * 16 + 24 * 4 + 1152),
+    # hd 100 (rows copied by threads) in the class of 128
+    (100, 600, 10, 1024 + 131072 + 4096 + 8 * 1 + 24 * 4 + 1152),
+    # RecurrentGemma-9B: two stages of hd 256
+    (256, 2048, 32, 1024 + 131072 + 8192 + 8 * 1 + 24 * 2 + 1152),
+    # hd 64 over one split of 2,048 tiles: 8 stages, 16 KB of masks
+    (64, 64 * 2048, 1, 1024 + 131072 + 2048 + 8 * 2048 + 24 * 8 + 1152),
+])
+def test_bf16_shared_memory_layout(hd, w, splits, expected):
+    """``decode_bf16_smem_bytes`` lays out what the kernel's ``Layout``
+    does: alignment slack; the ring (it holds the consumer warps' fp32
+    partials after the loop); Q's 16 rows; a 64-bit mask a tile; three
+    barriers a stage; the merge's row maxima and sums.
+    Every case fits a block's 232,448 bytes."""
+    got = da.decode_bf16_smem_bytes(hd, w, splits)
+    assert got == expected and got <= 232_448
+
+
+def test_walks_count_each_dtype_under_its_kernel():
+    """On fake tensors of the card's device type (the dry run's), a bf16
+    call records its launch's cost under ``decode_attention_bf16`` and an
+    fp32 call under ``decode_attention``, the same cost function; nothing
+    is launched or counted in ``launch_counts``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline.cost import CostWalk
+    before = dict(da.launch_counts)
+    with FakeTensorMode():
+        for dtype, name in ((torch.bfloat16, "decode_attention_bf16"),
+                            (torch.float32, "decode_attention")):
+            q = torch.empty(2, 1, 12, 64, dtype=dtype, device="cuda")
+            kv = torch.empty(2, 256, 2, 64, dtype=dtype, device="cuda")
+            sp = torch.empty(256, dtype=torch.int32, device="cuda")
+            pos = torch.empty((), dtype=torch.int32, device="cuda")
+            with CostWalk() as walk:
+                out = da.decode_attention(q, kv, kv, sp, pos)
+            assert out.dtype == dtype and out.shape == q.shape
+            kernels = walk.result()["kernels"]
+            assert list(kernels) == [name]
+            assert kernels[name]["launches"] == 1
+            flops, nbytes = da.decode_attention_cost(q, kv, kv, sp, pos)
+            assert kernels[name]["flops"] == flops == 4 * 2 * 12 * 64 * 256
+            assert kernels[name]["bytes"] == nbytes
+    assert da.launch_counts == before
+
+
 # ---------------------------------------------------------------------------
 # decode_self_attention: one layer, carried-over parameters, wrapped ring
 # ---------------------------------------------------------------------------

@@ -10,9 +10,9 @@ per-rank counting on DTensors (``roofline.cost.CostWalk``).
   collective bytes of the train, prefill and decode steps equal a real
   rank's walk of the same step on 4 gloo ranks, exactly; against the
   reference's ``hlo_cost.analyze`` of its compiled sharded step (4
-  placeholder devices) the FLOPs of all three are equal.  Qwen1.5-MoE's
-  train step and prefill equal the reference's too; its decode step
-  differs by ``DECODE_MOE_DIFFERENCE`` (PERF.md).
+  placeholder devices) the FLOPs of all three are equal, for Qwen1.5-MoE
+  too (its decode's MoE splits the router and expert contractions over
+  'data', as GSPMD does).
 * The production pair ``stablelm-1.6b x train_4k`` on 16x16 (in a
   subprocess): status ``ok``, its per-rank argument bytes equal the sum of
   the reference's ``NamedSharding.shard_shape`` bytes, and the process
@@ -246,35 +246,20 @@ def test_dryrun_counts_equal_a_real_rank_and_the_reference_hlo():
         assert rec["cost"]["flops"] == ref[kind], (kind, ref[kind])
 
 
-def DECODE_MOE_DIFFERENCE(cfg, data: int = 2, model: int = 2) -> int:
-    """The port's sharded decode step's FLOPs a rank less the reference's
-    (PERF.md).  The decode's MoE routes the whole batch (the
-    reference's ``apply_moe(mesh=None)``): the port gathers the expert
-    weights over 'data' and every data rank computes the router product
-    and the three expert products of all T = B tokens, where GSPMD splits
-    their contraction over D across 'data' (the weights' FSDP dim).  So
-    (1 - 1/data) of them, a layer."""
-    from repro_torch.models.moe import _capacity
-    T, D, E = B, cfg.d_model, cfg.num_experts
-    C = _capacity(T, E, cfg.num_experts_per_tok, cfg.capacity_factor)
-    F = cfg.moe_d_ff or cfg.d_ff
-    per_layer = 2 * T * D * E + 3 * 2 * E * C * D * (F // model)
-    return cfg.num_layers * per_layer * (data - 1) // data
-
-
-def test_moe_dryrun_counts_equal_the_reference_hlo_but_the_decode_moe():
-    """Qwen1.5-MoE at smoke width on 2 x 2: the train step and the
-    prefill equal the reference's HLO walk (the shared experts' second
-    product goes through ``row_parallel``, whose backward is each rank's
-    own slice); the decode step differs by ``DECODE_MOE_DIFFERENCE``."""
+def test_moe_dryrun_counts_equal_the_reference_hlo():
+    """Qwen1.5-MoE at smoke width on 2 x 2: the train step, the prefill
+    and the decode step equal the reference's HLO walk exactly (the shared
+    experts' second product goes through ``row_parallel``, whose backward
+    is each rank's own slice; the decode's MoE, which routes the whole
+    batch on every data rank, splits the router and expert contractions
+    over D across 'data', as GSPMD partitions the reference's)."""
     arch = "qwen2-moe-a2.7b"
     ref = _reference_hlo(arch)
     cfg = t_base.get_config(arch, smoke=True)
     dry = _dry_runs(cfg)
     ref = ref()
     for kind in KINDS:
-        diff = DECODE_MOE_DIFFERENCE(cfg) if kind == "decode" else 0
-        assert dry[kind]["cost"]["flops"] - ref[kind] == diff, (kind, ref)
+        assert dry[kind]["cost"]["flops"] == ref[kind], (kind, ref)
 
 
 PRODUCTION = textwrap.dedent("""

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (``segment_aggregate``, ``cloud_aggregate``,
-``weighted_mean``, ``segment_sum``, ``flash_attention``, ``rglru_scan``,
-``decode_attention``) against their plain PyTorch versions, on the card.
+``weighted_mean``, ``segment_sum``, ``flash_attention`` in fp32 and bf16,
+``rglru_scan``, ``decode_attention`` in fp32 and bf16) against their plain
+PyTorch versions, on the card.
 Imports only torch and numpy, so it runs on a GPU machine without JAX:
 PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py
 Without a card every case skips: a CUDA kernel has no CPU mode."""
@@ -424,37 +425,45 @@ def test_flash_attention_tile_rule_fits_every_config(arch):
 def test_decode_attention_layout_fits_every_config(arch):
     """For each config's head dim and group, and at the most query heads a
     KV head, one block of the decode kernel at B = 2 over an 8,192-slot
-    cache fits the card's shared memory, fp32 and bf16."""
+    cache fits the card's shared memory, fp32 and bf16, and so does a
+    bf16 block of one split over the most slots a split takes."""
     from repro_torch.kernels import decode_attention as da
     cfg = get_config(arch)
     hd = cfg.resolved_head_dim
     g = cfg.num_heads // cfg.num_kv_heads
     splits, _ = da.decode_splits(2 * cfg.num_kv_heads, 8192)
+    most = da.BF16_TILE * da.BF16_MAX_TILES_PER_SPLIT
     for group in (g, da.MAX_GROUP):
-        for bf16 in (False, True):
-            assert da.decode_smem_bytes(hd, group, 8192, splits,
-                                        bf16) <= SMEM_PER_BLOCK
+        assert da.decode_smem_bytes(hd, group, 8192, splits) <= SMEM_PER_BLOCK
+        bf16_splits, _ = da.decode_bf16_splits(2 * cfg.num_kv_heads, 8192,
+                                               group)
+        assert da.decode_bf16_smem_bytes(hd, 8192,
+                                         bf16_splits) <= SMEM_PER_BLOCK
+    assert da.decode_bf16_smem_bytes(hd, most, 1) <= SMEM_PER_BLOCK
 
 
-# B, W, K: the decode shapes of RecurrentGemma-9B (a full 2,048-slot ring),
-# ChatGLM3-6B and Qwen1.5-MoE-A2.7B (8,192 slots at S = 4,096) and
-# StableLM-1.6B in the CLI.
-SERVING_DECODES = {"recurrentgemma": (2, 2048, 1), "chatglm3": (2, 8192, 2),
-                   "qwen2_moe": (2, 8192, 16),
-                   "stablelm_cli": (4, 128, 32)}
+# B, W, K, g: the decode shapes of RecurrentGemma-9B (a full 2,048-slot
+# ring), ChatGLM3-6B and Qwen1.5-MoE-A2.7B (8,192 slots at S = 4,096),
+# StableLM-1.6B in the CLI and InternVL2-26B.
+SERVING_DECODES = {"recurrentgemma": (2, 2048, 1, 16),
+                   "chatglm3": (2, 8192, 2, 16),
+                   "qwen2_moe": (2, 8192, 16, 1),
+                   "stablelm_cli": (4, 128, 32, 1),
+                   "internvl2": (2, 8192, 8, 6)}
 
 
 @pytest.mark.parametrize("name", sorted(SERVING_DECODES))
 def test_decode_split_rule_fills_the_card(name):
     """The serving decode shapes give every SM a block, but for fewer than
     one per (batch, KV head) pair or where the tiles run out, and no SM
-    two."""
+    two: fp32's 32-slot tiles and bf16's 64-slot tiles."""
     from repro_torch.kernels import decode_attention as da
-    B, W, K = SERVING_DECODES[name]
-    splits, per = da.decode_splits(B * K, W)
-    blocks = splits * B * K
-    assert blocks > da.NUM_SMS - B * K or per == 1
-    assert blocks <= da.NUM_SMS
+    B, W, K, g = SERVING_DECODES[name]
+    for splits, per in (da.decode_splits(B * K, W),
+                        da.decode_bf16_splits(B * K, W, g)):
+        blocks = splits * B * K
+        assert blocks > da.NUM_SMS - B * K or per == 1
+        assert blocks <= da.NUM_SMS
 
 
 # B, Sq, H, K, hd: the prefill shapes of RecurrentGemma-9B, ChatGLM3-6B and
@@ -555,6 +564,15 @@ DECODE_CASES = {
     # heads to 12 over 2 (4,097 of 8,192 slots); both dtypes run
     "whisper_decoder": (8, 187, 8, 8, 64, 31, 0, "prefix"),
     "internvl2_cut": (2, 8192, 12, 2, 128, 4096, 0, "prefix"),
+    # the bf16 path shapes: InternVL2-26B's full decode (48 over 8),
+    # Qwen1.5-MoE-A2.7B's local decode on a 1 x 4 mesh (4 over 4 heads of a
+    # 2,048-slot ring), Qwen3-32B's group of 8 (64 over 8) and
+    # RecurrentGemma-9B's group of 16 at hd 256 under its 2,048 window
+    # before the ring fills
+    "internvl2": (2, 8192, 48, 8, 128, 4096, 0, "prefix"),
+    "qwen2_moe_local": (2, 2048, 4, 4, 128, 1024, 0, "prefix"),
+    "group_8_qwen3": (2, 4096, 64, 8, 128, 2500, 0, "prefix"),
+    "group_16_hd256_window": (1, 2048, 16, 1, 256, 1500, 2048, "prefix"),
 }
 
 
@@ -589,30 +607,78 @@ def _decode_inputs(case, cuda, dtype):
             torch.tensor(pos, dtype=torch.int32, device=cuda))
 
 
+def _check_decode_bf16(out, ref):
+    """K5 bf16's rule: the output within 2 bf16 ulps of the largest
+    value, and each element within one bf16 ulp of itself plus 2^-16 of
+    the largest value."""
+    scale = ref.float().abs().max()
+    diff = (out.float() - ref.float()).abs()
+    assert diff.max() <= 2 * 2 ** -8 * scale
+    assert (diff <= 2 ** -7 * ref.float().abs() + 2 ** -16 * scale).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", sorted(DECODE_CASES))
 def test_cuda_decode_attention_matches_plain_version(cuda, name, dtype):
-    """fp32 within 1e-5 of the output's scale; bf16 output within 2 bf16
-    ulps of the largest value.  Two launches agree bit for bit (the
-    partials are merged in a fixed order, whichever block comes last)."""
+    """fp32 within 1e-5 of the output's scale; bf16 by K5 bf16's rule
+    (``_check_decode_bf16``).  Each call launches its dtype's kernel once,
+    and no other.  Two launches agree bit for bit (the partials are merged
+    in a fixed order, whichever block comes last)."""
     from repro_torch.kernels import decode_attention as da
     case = DECODE_CASES[name]
     window = case[6]
     q, k, v, sp, pos = _decode_inputs(case, cuda, dtype)
-    before = da.launch_counts["decode_attention"]
+    want = dict(da.launch_counts)
+    want["decode_attention" if dtype == torch.float32
+         else "decode_attention_bf16"] += 2
     out = da.decode_attention(q, k, v, sp, pos, window=window)
     again = da.decode_attention(q, k, v, sp, pos, window=window)
     torch.cuda.synchronize()
-    assert da.launch_counts["decode_attention"] == before + 2
+    assert da.launch_counts == want
     ref = da.decode_attention_plain(q, k, v, sp, pos, window=window)
     assert out.dtype == dtype and out.shape == q.shape
     assert torch.isfinite(out).all()
-    scale = ref.float().abs().max()
-    err = (out.float() - ref.float()).abs().max()
-    assert err <= (1e-5 if dtype == torch.float32 else 2 * 2 ** -8) * scale
+    if dtype == torch.float32:
+        scale = ref.float().abs().max()
+        assert (out - ref).abs().max() <= 1e-5 * scale
+    else:
+        _check_decode_bf16(out, ref)
     assert torch.equal(out, again)
+
+
+# B, W, H, K, hd, pos: the bf16 kernel's two copy routes, TMA tiles
+# (InternVL2-26B's group of 6 at hd 128) and rows copied by its threads
+# (hd 100: rows of 200 bytes, which a tensor map cannot describe)
+HUGE_CASES = {"tma": (2, 2048, 12, 2, 128, 1000),
+              "thread_copies": (2, 600, 12, 2, 100, 300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(HUGE_CASES))
+def test_cuda_decode_attention_bf16_ignores_the_rows_that_do_not_count(
+        cuda, name):
+    """The slots that do not count (past pos, in tiles that are copied
+    whole) with K and V rows of +-3e38: the same bits as with those rows
+    zeroed, within K5 bf16's rule of the plain version."""
+    from repro_torch.kernels import decode_attention as da
+    B, W, H, K, hd, pos = HUGE_CASES[name]
+    q, k, v, sp, p = _decode_inputs((B, W, H, K, hd, pos, 0, "prefix"),
+                                    cuda, torch.bfloat16)
+    dead = torch.arange(W, device=cuda) > pos
+    sign = torch.where(torch.rand(k.shape, device=cuda) < 0.5, -1.0, 1.0)
+    huge_k, huge_v = k.clone(), v.clone()
+    huge_k[:, dead] = (3e38 * sign[:, dead]).to(torch.bfloat16)
+    huge_v[:, dead] = (-3e38 * sign[:, dead]).to(torch.bfloat16)
+    k[:, dead] = 0
+    v[:, dead] = 0
+    assert torch.isfinite(huge_k).all() and huge_k.abs().max() > 2e38
+    out = da.decode_attention(q, huge_k, huge_v, sp, p)
+    zeroed = da.decode_attention(q, k, v, sp, p)
+    torch.cuda.synchronize()
+    assert torch.equal(out, zeroed)
+    _check_decode_bf16(out, da.decode_attention_plain(q, k, v, sp, p))
 
 
 @pytest.mark.cuda
