@@ -334,6 +334,7 @@ from repro_torch.data import (TokenStream, size_partition,  # noqa: E402
 from repro_torch.fl.aggregate import (StreamingEdgeAccumulator,  # noqa: E402
                                       flat_cloud_aggregate)
 from repro_torch.fl.flatten import tree_leaves  # noqa: E402
+from repro_torch import tracing  # noqa: E402
 from repro_torch.fl.sim import HFLSimulator  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -601,19 +602,6 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/decode_attention_bf16.cu",
         replaces="src/repro/kernels/decode_attention.py:66"),
 }
-COUNTERS = (ha, fa, rs, da)
-
-
-def reset_counts() -> None:
-    for mod in COUNTERS:
-        mod.reset_launch_counts()
-
-
-def counts() -> dict:
-    out = {}
-    for mod in COUNTERS:
-        out.update(mod.launch_counts)
-    return out
 
 
 def expect(**launched) -> dict:
@@ -858,8 +846,8 @@ def check_one_launch(calls_by_name: dict) -> None:
             # the counts of the profiled run alone (kernels_per_call runs
             # the calls once before it)
             launched = kernels_per_call(
-                lambda: (reset_counts(), [fn() for fn in calls]), flush)
-            counted = counts()
+                lambda: (tracing.reset(), [fn() for fn in calls]), flush)
+            counted = tracing.launches()
             check(counted == expect(**{name: len(calls)}),
                   f"{name}: {len(calls)} calls counted {counted}")
             if launched:
@@ -1863,12 +1851,12 @@ def phase_main_path(sch, plan_s, ue_data, test):
           f"{SAMPLES_PER_UE} samples per UE; {rounds} cloud rounds "
           f"(a*b* = {sch.a * sch.b} GD steps each)")
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = sim.run(test, rounds=rounds, verbose=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     print(f"main path: {run_s:.3f} s for {rounds} cloud rounds "
           f"({run_s / rounds:.3f} s per round, first-call warm-up included)")
     print(f"launches during the main path: {launches}")
@@ -2022,12 +2010,12 @@ def phase_async(sch, ue_data, test, card_sync, spread) -> None:
     sim = make_sim(sch, ue_data, "cuda", mode="async",
                    max_staleness=ASYNC_STALENESS)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = sim.run(test, rounds=ROUNDS, verbose=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     tl = res.timeline
     waves = departure_waves(tl)
     updates = len(tl.updates)
@@ -2075,7 +2063,7 @@ def phase_streaming() -> int:
     acc = StreamingEdgeAccumulator(m, f, device="cuda")
     starts = range(0, n, chunk)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     for i, start in enumerate(starts):
         stop = min(start + chunk, n)
@@ -2084,7 +2072,7 @@ def phase_streaming() -> int:
     means = acc.edge_means()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     print(f"streaming: {n} rows x {f} fp32 in {len(starts)} chunks of "
           f"{chunk}, M={m}: {wall:.3f} s, {n / wall:.4g} rows/s (chunk "
           f"generation included); resident {acc.resident_bytes()} B, "
@@ -2205,10 +2193,10 @@ def phase_serve_cli(argv, batch: int, prefill: dict,
     """``repro_torch.launch.serve``'s entry point at full width: ``prefill``
     launches in prefill and ``attn_layers`` ``decode_attention`` launches
     per decode step, nothing else; (batch, SERVE_GEN) tokens."""
-    reset_counts()
+    tracing.reset()
     torch.cuda.reset_peak_memory_stats()
     res = serve.main(argv)
-    launches = counts()
+    launches = tracing.launches()
     gen = SERVE_GEN - 1
     print(f"serve CLI {argv}: launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated()} B")
@@ -2286,52 +2274,55 @@ class PinnedRoutes:
 
 
 def moe_profile(fn, label: str) -> None:
-    """``device_profile`` of ``fn`` with the MoE's stages (``_route``,
-    ``_dispatch``, ``_expert_ffn``, ``_combine``) and its shared experts
-    annotated (``torch.profiler.record_function``): each stage's device
-    time and share of the device-busy time, then the serving profile."""
+    """``device_profile`` of ``fn`` with the MoE's stages read from the
+    program's own spans (``repro_torch.tracing``: ``moe.route``,
+    ``moe.dispatch``, ``moe.experts``, ``moe.combine``, ``moe.shared``
+    and the whole ``moe``): the device time of the operations the host
+    queued inside each one's ranges (a device operation and its runtime
+    call share a correlation id) and its share of the device-busy time,
+    then the serving profile."""
+    import bisect
+    from collections import defaultdict
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    stages = ("_route", "_dispatch", "_expert_ffn", "_combine")
-
-    def annotated(name, f):
-        def wrapped(*a, **k):
-            with record_function(f"moe.{name}"):
-                return f(*a, **k)
-        return wrapped
-
-    patches = [mock.patch.object(moe, n, annotated(n, getattr(moe, n)))
-               for n in stages]
-    for p in patches:
-        p.start()
-    try:
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        for p in patches:
-            p.stop()
-    events = prof.key_averages()
-    # the annotations also show on the device's timeline, as spans that
-    # cover their kernels and the gaps between them: kept out of the
-    # kernels; a stage's device time is its kernels' (the host-side span's)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not e.key.startswith("moe.")]
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels)
-    spans = {e.key: e.device_time_total for e in events
-             if e.key.startswith("moe.") and e.device_type == DeviceType.CPU}
-    moe_us = sum(spans.values())
+    events = prof.events()
+    queued_at = {e.id: e.time_range.start for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name.startswith("cu")}
+    ranges = defaultdict(list)
+    for e in events:
+        if e.device_type == DeviceType.CPU and (
+                e.name == "moe" or e.name.startswith("moe.")):
+            ranges[e.name].append((e.time_range.start, e.time_range.end))
+    stages = dict.fromkeys(ranges, 0.0)
+    for name, rs in ranges.items():
+        rs.sort()
+        starts = [lo for lo, _ in rs]
+        for d in events:
+            t = queued_at.get(d.id) if d.device_type == DeviceType.CUDA \
+                else None
+            if t is None:
+                continue
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= rs[i][1]:
+                stages[name] += d.time_range.elapsed_us()
     print_serving_profile(kernels, wall_us, label)
-    if busy:
+    if busy and stages:
         print(f"  MoE stages in the {label}: " + "; ".join(
             f"{k} {v / 1e3:.3f} ms = {v / busy:.1%}"
-            for k, v in sorted(spans.items()))
-            + f"; routed MoE in all {moe_us / 1e3:.3f} ms = "
-            f"{moe_us / busy:.1%} of device time")
+            for k, v in sorted(stages.items()) if k != "moe")
+            + f"; the MoE in all {stages.get('moe', 0.0) / 1e3:.3f} ms = "
+            f"{stages.get('moe', 0.0) / busy:.1%} of device time")
 
 
 def phase_serving(arch: str, n_params: int, prefill: dict,
@@ -2371,13 +2362,13 @@ def phase_serving(arch: str, n_params: int, prefill: dict,
     recording = pin.record() if pin else contextlib.nullcontext()
 
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     with recording:
         logits, state = model.prefill(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     print(f"prefill B={SERVE_BATCH} S={prompt}: {prefill_s:.3f} s; "
           f"launches {launches}")
     check(launches == expect(**prefill),
@@ -2386,7 +2377,7 @@ def phase_serving(arch: str, n_params: int, prefill: dict,
     decode_logits = []
     st = state
     del state
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     with recording:
         for _ in range(gen - 1):
@@ -2395,7 +2386,7 @@ def phase_serving(arch: str, n_params: int, prefill: dict,
             tokens.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None])
     torch.cuda.synchronize()
     decode_s = (time.perf_counter() - t0) / (gen - 1)
-    decoded = counts()
+    decoded = tracing.launches()
     check(decoded == expect(decode_attention=attn_layers * (gen - 1)),
           f"decode launch counts {decoded} != {attn_layers} x "
           f"{gen - 1} decode_attention, none else")
@@ -2482,17 +2473,17 @@ def phase_serving_card_vs_cpu(arch: str, layers: int, prompt: int,
     def pinned(label):
         return pin.replay(label, calls) if pin else contextlib.nullcontext()
 
-    reset_counts()
+    tracing.reset()
     with pin.record() if pin else contextlib.nullcontext():
         logits, state = card.prefill(params, batch)
         torch.cuda.synchronize()
-        check(counts() == expect(**prefill),
-              f"{layers}-layer prefill launch counts {counts()}")
-        reset_counts()
+        check(tracing.launches() == expect(**prefill),
+              f"{layers}-layer prefill launch counts {tracing.launches()}")
+        tracing.reset()
         decode = teacher_forced(card, params, state, follow)
     torch.cuda.synchronize()
-    check(counts() == expect(decode_attention=attn_layers * CPU_STEPS),
-          f"{layers}-layer decode launch counts {counts()}")
+    check(tracing.launches() == expect(decode_attention=attn_layers * CPU_STEPS),
+          f"{layers}-layer decode launch counts {tracing.launches()}")
     naive = Model(cfg, impl="naive")
     with pinned("card, plain route"):
         plain, st = naive.prefill(params, batch)
@@ -2535,12 +2526,12 @@ def sharded_rank(sch, ue_data, test) -> dict:
         seconds=RANK_TIMEOUT_S))
     sim = make_sim(sch, ue_data, mesh.device, mesh=mesh)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = sim.run(test, rounds=ROUNDS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     t0 = time.perf_counter()
     sim.run(test, rounds=1)
     torch.cuda.synchronize()
@@ -2548,12 +2539,12 @@ def sharded_rank(sch, ue_data, test) -> dict:
 
     x, w = fleet_shard(mesh.rank)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     out = flat_cloud_aggregate(x, w, mesh=mesh)
     torch.cuda.synchronize()
     fleet_s = time.perf_counter() - t0
-    fleet_launches = counts()
+    fleet_launches = tracing.launches()
     num = torch.zeros(LENET_PARAMS, dtype=torch.float64, device=x.device)
     for start in range(0, FLEET_ROWS, 2048):
         num += w[start:start + 2048].double() @ x[start:start + 2048].double()
@@ -2736,12 +2727,12 @@ def _phase_stochastic(sch, ue_data, test, main_clock) -> dict:
     sim = make_sim(sch, ue_data, "cuda", delay_model=model,
                    delay_seed=STOCH_SEED)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = sim.run(test, rounds=ROUNDS, verbose=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     print(f"{STOCH_SCENARIO}, delay_seed={STOCH_SEED}: {ROUNDS} sync rounds "
           f"in {run_s:.3f} s (first-call warm-up included); one draw of "
           f"{ROUNDS} cycles x {b} edge rounds x {sch.num_ues} UEs on the card "
@@ -2780,12 +2771,12 @@ def _phase_stochastic(sch, ue_data, test, main_clock) -> dict:
                     max_staleness=ASYNC_STALENESS, delay_model=model,
                     delay_seed=STOCH_SEED)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     ares = asim.run(test, rounds=CUT_ROUNDS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    async_launches = counts()
+    async_launches = tracing.launches()
     tl = ares.timeline
     waves = departure_waves(tl)
     print(f"stochastic async path: max_staleness={ASYNC_STALENESS}, "
@@ -2921,12 +2912,12 @@ def _phase_faults(sch, ue_data, test) -> dict:
                        fault_model=fm, fault_policy=pol,
                        fault_seed=FAULT_SEED)
         torch.cuda.synchronize()
-        reset_counts()
+        tracing.reset()
         t0 = time.perf_counter()
         res = sim.run(test, rounds=FAULT_ROUNDS, verbose=True)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        got = counts()
+        got = tracing.launches()
         fc = stats[name]
         kept = fc.survivors & ~fc.down[:, gids]
         k = int(kept.any(axis=1).sum())
@@ -2997,12 +2988,12 @@ def _phase_faults(sch, ue_data, test) -> dict:
     ssim = make_sim(sch, ue_data, "cuda", sampler=sampler,
                     sample_seed=FAULT_SEED)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = ssim.run(test, rounds=FAULT_ROUNDS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    got = counts()
+    got = tracing.launches()
     w_np, g_np = ssim.weights.cpu().numpy(), ssim.group_ids.cpu().numpy()
     part = sampler.sample_rounds(Key(FAULT_SEED, device="cuda"), w_np, g_np,
                                  M, FAULT_ROUNDS)
@@ -3032,12 +3023,12 @@ def _phase_faults(sch, ue_data, test) -> dict:
                     max_staleness=ASYNC_STALENESS, delay_model=model,
                     fault_model=fm, fault_policy=dlf, fault_seed=FAULT_SEED)
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     ares = asim.run(test, rounds=CUT_ROUNDS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    got = counts()
+    got = tracing.launches()
     tl = ares.timeline
     waves = departure_waves(tl)
     ref = faulty_async_completion(prob, assoc, a, b, rounds=CUT_ROUNDS,
@@ -3181,11 +3172,11 @@ def _phase_joint(ue_data, test) -> dict:
     def segment(s):
         nonlocal waves
         torch.cuda.synchronize()
-        reset_counts()
+        tracing.reset()
         t0 = time.perf_counter()
         res = s.run(test, rounds=1)
         torch.cuda.synchronize()
-        got, w = counts(), departure_waves(res.timeline)
+        got, w = tracing.launches(), departure_waves(res.timeline)
         check(got == expect(segment_aggregate=sched.b * w),
               f"joint async: launch counts {got} != b*waves={sched.b * w}")
         for name in KERNELS:
@@ -3279,7 +3270,7 @@ def counted_run(label: str, build, events: int, before=None,
     ``extra()`` names the run's other launches.  Returns
     ``(svc, launched)``."""
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     svc, waves = build()
     if before is not None:
@@ -3288,7 +3279,7 @@ def counted_run(label: str, build, events: int, before=None,
     svc.run(events)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = counts()
+    got = tracing.launches()
     want = expect(segment_aggregate=svc.sim.schedule.b * waves[0],
                   **(extra() if extra is not None else {}))
     check(got == want, f"{label}: launch counts {got} != {want} (K1 b* a "
@@ -3437,10 +3428,10 @@ def _phase_service(sch, ue_data, test, kill: dict, kill_dir: str) -> tuple:
     print(f"  edge_outage: records {sorted(kinds)}; failover at t={fo['t']} "
           f"of edges {fo['edges']} ({fo['orphans']} orphans)")
     dead = int(gids[0])
-    reset_counts()
+    tracing.reset()
     faulted.sim.replay_departure(faulted.g, np.ones(gids.size, bool),
                                  ue_ok=gids != dead)
-    got = counts()
+    got = tracing.launches()
     check(got == expect(segment_aggregate=sch.b), f"dead wave: {got}")
     for name in KERNELS:
         launches[name] += got[name]
@@ -3647,11 +3638,11 @@ def stream_slab(sim) -> dict:
         return acc.scatter(g)
 
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     streamed = fold(slab)
     torch.cuda.synchronize()
-    out = dict(wall=time.perf_counter() - t0, launches=counts(),
+    out = dict(wall=time.perf_counter() - t0, launches=tracing.launches(),
                chunks=-(-slab.shape[0] // MESH_STREAM_CHUNK))
     gen = torch.Generator(device=slab.device).manual_seed(
         MESH_STREAM_SEED + sim.mesh.rank)
@@ -3701,11 +3692,11 @@ def mesh_rank(sch, ue_data, test, ckpt_dir, spawned: float) -> dict:
 
     def counted(fn):
         torch.cuda.synchronize()
-        reset_counts()
+        tracing.reset()
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
-        return got, time.perf_counter() - t0, counts()
+        return got, time.perf_counter() - t0, tracing.launches()
 
     # (a) phase 5's async run on the mesh, CUT_ROUNDS rounds' quota
     t0 = time.time()
@@ -4107,12 +4098,12 @@ def phase_train() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = train.parse_args(TRAIN_ARGV)
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = train.main(TRAIN_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = tracing.launches()
     peak = torch.cuda.max_memory_allocated()
     losses, step_s = res["losses"], res["step_s"]
     warm = float(np.median(step_s[1:]))
@@ -4185,14 +4176,14 @@ def phase_train_card_vs_cpu() -> dict:
     params = card.init(0)
     batch = TokenStream(cfg.vocab_size, seed=0).batch(TRAIN_CUT_BATCH,
                                                       TRAIN_CUT_SEQ)
-    reset_counts()
+    tracing.reset()
     torch.backends.cudnn.deterministic = True
     try:
         got, card_cost = walk(train_cut_step, card, params, batch)
         moved = train_cut_step(card, perturbed(params), batch)
     finally:
         torch.backends.cudnn.deterministic = False
-    check(counts() == expect(), f"training cut launched {counts()}")
+    check(tracing.launches() == expect(), f"training cut launched {tracing.launches()}")
     cpu_params = to_cpu(params)
     del params
     torch.set_num_threads(os.cpu_count() or 1)
@@ -4242,20 +4233,20 @@ def phase_refuse_autograd() -> None:
                              (q[:, -1:], kv, kv))}
     for name, (fn, args) in calls.items():
         leaf = args[0].clone().requires_grad_()
-        reset_counts()
+        tracing.reset()
         try:
             fn(leaf, *args[1:])
             raised = ""
         except RuntimeError as e:
             raised = str(e)
-        check("xla_flash" in raised and counts() == expect(),
+        check("xla_flash" in raised and tracing.launches() == expect(),
               f"{name} took inputs that require grad")
         with torch.no_grad():
             out = fn(leaf, *args[1:])
         torch.cuda.synchronize()
-        check(counts() == expect(**{name: 1})
+        check(tracing.launches() == expect(**{name: 1})
               and bool(torch.isfinite(out).all()),
-              f"{name} under no_grad: launches {counts()}")
+              f"{name} under no_grad: launches {tracing.launches()}")
         print(f"  {name}: raised under autograd ({raised[:60]}...); "
               f"launched once under torch.no_grad()")
 
@@ -4291,13 +4282,13 @@ def phase_roofline(trained: dict, cut: dict) -> dict:
              for k, v in trained["batch"].items()}
 
     # (a) one warm step of the full-width train step, walked
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     _, full = walk(trained["step"], trained["params"], trained["state"],
                    batch)
     walk_s = time.perf_counter() - t0
-    check(counts() == expect() and not full["kernels"],
-          f"the train step launched {counts()}")
+    check(tracing.launches() == expect() and not full["kernels"],
+          f"the train step launched {tracing.launches()}")
     flops = {}
     for layers in ROOF_CUTS:
         model = Model(dataclasses.replace(cfg, num_layers=layers),
@@ -4339,15 +4330,15 @@ def phase_roofline(trained: dict, cut: dict) -> dict:
         ROOF_BATCH, ROOF_PROMPT)["tokens"]
     launches = dict.fromkeys(KERNELS, 0)
     with torch.no_grad():
-        reset_counts()
+        tracing.reset()
         (logits, state), pre = walk(model.prefill, params,
                                     {"tokens": torch.as_tensor(
                                         tokens, device="cuda")})
-        pre_n = counts()
-        reset_counts()
+        pre_n = tracing.launches()
+        tracing.reset()
         (nxt, state), dec = walk(steps_lib.make_serve_step(model), params,
                                  state, logits.argmax(-1).to(torch.int32))
-        dec_n = counts()
+        dec_n = tracing.launches()
     check(bool(torch.isfinite(logits).all()) and tuple(nxt.shape) ==
           (ROOF_BATCH, 1), "prefill logits finite, one token a row")
     for label, walked, got, name in (("prefill", pre, pre_n,
@@ -4455,7 +4446,7 @@ def hfl_rank(fl) -> dict:
     from repro_torch.launch import train
     args = hfl_args()
     torch.cuda.synchronize()
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     rounds = [dict(loss=loss, clock=clock,
                    final=[t.cpu() for t in tree_leaves(params)])
@@ -4463,7 +4454,7 @@ def hfl_rank(fl) -> dict:
                   args, hfl_schedule(args), fl, args.rounds)]
     torch.cuda.synchronize()
     return dict(rounds=rounds, wall=time.perf_counter() - t0,
-                launches=counts())
+                launches=tracing.launches())
 
 
 def check_hfl(ranks, ref) -> None:
@@ -4554,10 +4545,10 @@ def phase_moe_smoke() -> dict:
     served = phase_serving(MIXTRAL_ARCH, MIXTRAL_SMOKE_PARAMS,
                            dict(flash_attention=2), 2, smoke=True,
                            prompt=MIXTRAL_PROMPT, gen=MIXTRAL_GEN)
-    reset_counts()
+    tracing.reset()
     res = train.main(MOE_TRAIN_ARGV)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = tracing.launches()
     losses = res["losses"]
     model = Model(get_config(MOE_ARCH, smoke=True), impl="xla_flash")
     args = train.parse_args(MOE_TRAIN_ARGV)
@@ -4600,7 +4591,7 @@ def phase_xlstm() -> None:
     batch, follow = {"tokens": tokens[:, :XLSTM_CHUNKED_PROMPT]}, \
         tokens[:, XLSTM_CHUNKED_PROMPT:]
     runs = {}
-    reset_counts()
+    tracing.reset()
     for label, model, p in (("scan", scan, params),
                             ("chunked", chunked, params),
                             ("scan, moved", scan, perturbed(params))):
@@ -4611,7 +4602,7 @@ def phase_xlstm() -> None:
         runs[label] = (logits, teacher_forced(model, p, state, follow))
         print(f"  xLSTM {label} prefill B={SERVE_BATCH} "
               f"S={XLSTM_CHUNKED_PROMPT}: {t_prefill:.3f} s")
-    check(counts() == expect(), f"xLSTM launched kernels: {counts()}")
+    check(tracing.launches() == expect(), f"xLSTM launched kernels: {tracing.launches()}")
     (s_lg, s_dec), (c_lg, c_dec), (m_lg, m_dec) = runs.values()
     hold_to_spread("chunked vs scan", "prefill logits", c_lg, s_lg, s_lg,
                    m_lg)
@@ -4676,10 +4667,10 @@ def phase_whisper() -> dict:
     argv = ["--arch", WHISPER_ARCH, "--batch", str(WHISPER_BATCH),
             "--prompt-len", str(WHISPER_FRAMES), "--gen", str(WHISPER_GEN)]
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    tracing.reset()
     res = serve.main(argv)
     torch.cuda.synchronize()
-    cli = counts()
+    cli = tracing.launches()
     peak = torch.cuda.max_memory_allocated()
     want = expect(flash_attention=WHISPER_LAYERS,
                   decode_attention=WHISPER_LAYERS * WHISPER_GEN)
@@ -4705,10 +4696,10 @@ def phase_whisper() -> dict:
     batch = card_batch(cfg, CPU_BATCH, WHISPER_FRAMES)
     follow = torch.as_tensor(TokenStream(cfg.vocab_size, seed=1).batch(
         CPU_BATCH, TEACHER_STEPS)["tokens"], device="cuda")
-    reset_counts()
+    tracing.reset()
     logits, decode = served(card, params, batch, follow)
     torch.cuda.synchronize()
-    cut = counts()
+    cut = tracing.launches()
     want = expect(flash_attention=WHISPER_CUT,
                   decode_attention=WHISPER_CUT * (1 + TEACHER_STEPS))
     check(cut == want, f"Whisper cut launch counts {cut} != {want}")
@@ -4762,9 +4753,9 @@ def phase_vlm() -> dict:
           f"{torch.cuda.memory_allocated()} B allocated")
     batch = card_batch(cfg, SERVE_BATCH, VLM_PROMPT)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    tracing.reset()
     res = serve.generate(model, params, batch, SERVE_GEN)
-    gen = counts()
+    gen = tracing.launches()
     peak = torch.cuda.max_memory_allocated()
     tokens = res["tokens"]
     want = expect(flash_attention_bf16=VLM_LAYERS,
@@ -4780,16 +4771,16 @@ def phase_vlm() -> dict:
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "tokens in range")
     follow = tokens[:, :TEACHER_STEPS]
-    reset_counts()
+    tracing.reset()
     logits, state = model.prefill(params, batch)
     torch.cuda.synchronize()
-    pre = counts()
+    pre = tracing.launches()
     check(pre == expect(flash_attention_bf16=VLM_LAYERS),
           f"InternVL2 prefill launch counts {pre}")
-    reset_counts()
+    tracing.reset()
     decode = teacher_forced(model, params, state, follow)
     torch.cuda.synchronize()
-    dec = counts()
+    dec = tracing.launches()
     check(dec == expect(decode_attention_bf16=VLM_LAYERS * TEACHER_STEPS),
           f"InternVL2 decode launch counts {dec}")
     check(logits.dtype == bf and all(t.dtype == bf for t in decode)
@@ -4826,10 +4817,10 @@ def phase_vlm_card_vs_cpu() -> dict:
     batch = card_batch(cfg, CPU_BATCH, cfg.num_prefix_embeds + VLM_CPU_TOKENS)
     follow = torch.as_tensor(TokenStream(cfg.vocab_size, seed=1).batch(
         CPU_BATCH, CPU_STEPS)["tokens"], device="cuda")
-    reset_counts()
+    tracing.reset()
     logits, decode = served(card, params, batch, follow)
     torch.cuda.synchronize()
-    cut = counts()
+    cut = tracing.launches()
     want = expect(flash_attention_bf16=VLM_CPU_LAYERS,
                   decode_attention_bf16=VLM_CPU_LAYERS * CPU_STEPS)
     check(cut == want, f"InternVL2 cut launch counts {cut} != {want}")
@@ -4859,18 +4850,18 @@ def phase_whisper_train() -> None:
     width on the card (B=8, 128 frames and 16 tokens a row, AdamW, the
     ``xla_flash`` route): finite, falling losses, no kernel launch."""
     from repro_torch.launch import train
-    reset_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     res = train.main(WHISPER_TRAIN_ARGV)
     torch.cuda.synchronize()
     losses = res["losses"]
     print(f"(e) train CLI {WHISPER_TRAIN_ARGV}: losses "
           f"{[round(x, 4) for x in losses]} in "
-          f"{time.perf_counter() - t0:.1f} s; launches {counts()}")
+          f"{time.perf_counter() - t0:.1f} s; launches {tracing.launches()}")
     check(len(losses) == 10 and bool(np.isfinite(losses).all()),
           "finite Whisper training losses")
     check(losses[-1] < losses[0], f"Whisper losses not falling: {losses}")
-    check(counts() == expect(), f"Whisper training launched {counts()}")
+    check(tracing.launches() == expect(), f"Whisper training launched {tracing.launches()}")
 
 
 def phase_frontends() -> dict:
@@ -5191,7 +5182,7 @@ def mesh_model_rank(refs: dict) -> dict:
             dtok = shd.distribute_tree(mesh, {"t": tokens},
                                        {"t": ("batch", "seq")}, rules)["t"]
             times[f"b_{rules_name}_init"] = time.perf_counter() - t0
-            reset_counts()
+            tracing.reset()
             torch.cuda.synchronize()
             # the default rules' prefill walked: the pinning's own ops are
             # hidden from the walk, so it counts the prefill's
@@ -5202,7 +5193,7 @@ def mesh_model_rank(refs: dict) -> dict:
                                    costs=walked)
             torch.cuda.synchronize()
             res = dict(s=time.perf_counter() - t0, logits=logits,
-                       launches=counts())
+                       launches=tracing.launches())
             if rules_name == "default":
                 res["prefill_args"] = local_bytes((params, {"tokens": dtok}))
                 cost = walked["prefill"]
@@ -5227,13 +5218,13 @@ def mesh_model_rank(refs: dict) -> dict:
             model32 = mesh_serve_model(act=torch.float32, mesh=mesh,
                                        rules=rules)
             laps = {"build": time.perf_counter() - t1}
-            reset_counts()
+            tracing.reset()
             with pin32.replay(f"rank {rank} {rules_name} fp32",
                               refs["calls32"]):
                 res["logits32"], res["tokens32"] = greedy(
                     model32, params, dtok32, MESH_TOKEN_GEN, laps=laps)
             torch.cuda.synchronize()
-            res["launches32"] = counts()
+            res["launches32"] = tracing.launches()
             res["s32"] = time.perf_counter() - t1
             laps["rest"] = res["s32"] - sum(laps.values())
             for part, sec in laps.items():

@@ -82,6 +82,7 @@ import torch
 import torch.distributed as dist
 from torch.func import vmap
 
+from repro_torch import tracing
 from repro_torch.core import delay, faults
 from repro_torch.core.schedule import HFLSchedule
 from repro_torch.core.stochastic import DeterministicDelays, Key
@@ -340,18 +341,21 @@ class HFLSimulator:
         for _ in range(s.b):
             rows = self._gather_cols(flat)
             p = self._layout.unravel(rows)
-            if self.solver == "dane":
-                g_bar = clients.global_gradient(self.loss_fn, p,
-                                                self.batches,
-                                                self._local_weights,
-                                                group=self._data_group)
-                self._local_dane(p, self.batches, g_bar)
-            else:
-                self._local_gd(p, self.batches)
+            with tracing.span("hfl.local_gd"):
+                if self.solver == "dane":
+                    g_bar = clients.global_gradient(self.loss_fn, p,
+                                                    self.batches,
+                                                    self._local_weights,
+                                                    group=self._data_group)
+                    self._local_dane(p, self.batches, g_bar)
+                else:
+                    self._local_gd(p, self.batches)
             if rows is not flat:          # the gathered rows are a copy
                 flat.copy_(rows[:, self._cols])
-            flat = aggregate.flat_edge_aggregate(
-                flat, weights, self._local_gids, s.num_edges, mesh=self.mesh)
+            with tracing.span("hfl.aggregate"):
+                flat = aggregate.flat_edge_aggregate(
+                    flat, weights, self._local_gids, s.num_edges,
+                    mesh=self.mesh)
         return flat
 
     def _cloud_round(self, w_edge=None, w_cloud=None) -> None:
@@ -359,8 +363,10 @@ class HFLSimulator:
         weights (``_fault_round_weights``)."""
         if w_edge is None:
             w_edge = w_cloud = self._local_weights
-        self._flat = aggregate.flat_cloud_aggregate(
-            self._edge_rounds(self._flat, w_edge), w_cloud, mesh=self.mesh)
+        trained = self._edge_rounds(self._flat, w_edge)
+        with tracing.span("hfl.aggregate"):
+            self._flat = aggregate.flat_cloud_aggregate(trained, w_cloud,
+                                                        mesh=self.mesh)
 
     def _depart_cycle(self, g: torch.Tensor, mask: torch.Tensor,
                       w_edge: torch.Tensor) -> None:
@@ -449,7 +455,7 @@ class HFLSimulator:
 
     def _evaluate(self, gp, test: dict):
         """(test accuracy, test loss, train loss) of the global model."""
-        with torch.no_grad():
+        with tracing.span("hfl.eval"), torch.no_grad():
             loss, mets = self.loss_fn(gp, test)
             trl = self._train_loss(gp)
         return float(mets.get("acc", float("nan"))), float(loss), float(trl)
@@ -469,25 +475,28 @@ class HFLSimulator:
         times, accs, tlosses, trlosses = [], [], [], []
         clock = 0.0
         for r in range(rounds):
-            if kept is None:
-                self._cloud_round()
-            elif kept[r].any():
-                self._cloud_round(*self._fault_round_weights(kept[r]))
-            # else: nothing delivered — the round is wasted wall-clock and
-            # the model stays put (no cloud event sees all-zero weights)
-            clock += float(round_times[r])
-            if (r + 1) % eval_every == 0 or r == rounds - 1:
-                acc, loss, trl = self._evaluate(self.global_params(), test)
-                times.append(clock)
-                accs.append(acc)
-                tlosses.append(loss)
-                trlosses.append(trl)
-                if verbose:
-                    print(f"round {r+1:3d}/{rounds}  t={clock:9.2f}s  "
-                          f"acc={accs[-1]:.4f}  loss={tlosses[-1]:.4f}"
-                          + ("" if kept is None else
-                             f"  kept="
-                             f"{int((kept[r] & self._real_rows).sum())}"))
+            with tracing.span("hfl.round"):
+                if kept is None:
+                    self._cloud_round()
+                elif kept[r].any():
+                    self._cloud_round(*self._fault_round_weights(kept[r]))
+                # else: nothing delivered — the round is wasted wall-clock
+                # and the model stays put (no cloud event sees all-zero
+                # weights)
+                clock += float(round_times[r])
+                if (r + 1) % eval_every == 0 or r == rounds - 1:
+                    acc, loss, trl = self._evaluate(self.global_params(),
+                                                    test)
+                    times.append(clock)
+                    accs.append(acc)
+                    tlosses.append(loss)
+                    trlosses.append(trl)
+                    if verbose:
+                        print(f"round {r+1:3d}/{rounds}  t={clock:9.2f}s  "
+                              f"acc={accs[-1]:.4f}  loss={tlosses[-1]:.4f}"
+                              + ("" if kept is None else
+                                 f"  kept="
+                                 f"{int((kept[r] & self._real_rows).sum())}"))
         return SimResult(times=np.array(times), test_acc=np.array(accs),
                          test_loss=np.array(tlosses),
                          train_loss=np.array(trlosses),

@@ -16,11 +16,12 @@ A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
-(``grad_guard``).  ``launch_counts`` counts the launches under the
-kernel launched (``decode_attention`` in fp32, ``decode_attention_bf16``
-in bf16), so a run can show that its decode steps went through the
-kernel; each launch also hands its cost (``decode_attention_cost``) to the
-running cost walks (``kernels.costs``) under the same name.
+(``grad_guard``).  ``launch_counts`` (held by ``repro_torch.tracing``'s
+registry) counts the launches under the kernel launched
+(``decode_attention`` in fp32, ``decode_attention_bf16`` in bf16), so a
+run can show that its decode steps went through the kernel; each launch
+also hands its cost (``decode_attention_cost``) to the running cost walks
+(``kernels.costs``) under the same name.
 
 On the card the slots are dealt in tiles round-robin to the splits of
 each (batch, KV head), a block each: 32-slot tiles in fp32
@@ -34,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, costs
 from repro_torch.kernels.flash_attention import _tma_strides, head_dim_class
 from repro_torch.kernels.grad_guard import refuse_autograd
@@ -56,7 +58,8 @@ BF16_MAX_TILES_PER_SPLIT = 2048
 BF16_IN_FLIGHT = 128 * 1024
 BF16_MAX_STAGES = 8
 
-launch_counts = {"decode_attention": 0, "decode_attention_bf16": 0}
+launch_counts = tracing.launch_counts("decode_attention",
+                                      "decode_attention_bf16")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -73,11 +76,6 @@ _BF16_ARGTYPES = [_P] * 8 + [_I64] * 16 + [_INT] * 3 + [_P]
 #: capture them.  The port launches on one stream: two launches on two
 #: streams at once would share them.
 _scratch: dict = {}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def valid_slots(slot_pos, pos, window: int = 0):

@@ -14,11 +14,12 @@ A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
-(``grad_guard``).  ``launch_counts`` counts the launches under the
-kernel launched (``flash_attention`` in fp32, ``flash_attention_bf16`` in
-bf16), so a run can show that its attention layers went through the
-kernel; each launch also hands its cost (``flash_attention_cost``) to the
-running cost walks (``kernels.costs``) under the same name.
+(``grad_guard``).  ``launch_counts`` (held by ``repro_torch.tracing``'s
+registry) counts the launches under the kernel launched
+(``flash_attention`` in fp32, ``flash_attention_bf16`` in bf16), so a run
+can show that its attention layers went through the kernel; each launch
+also hands its cost (``flash_attention_cost``) to the running cost walks
+(``kernels.costs``) under the same name.
 
 On the card a block serves the whole query group of one (batch, KV head):
 its rows are consecutive (query position, head) pairs.  In fp32
@@ -33,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, costs
 from repro_torch.kernels.grad_guard import refuse_autograd
 from repro_torch.launch.mesh import NUM_SMS
@@ -47,7 +49,8 @@ MAX_WARPS = 8
 #: warpgroups of 64; head dims up to 128), or 64, 32, 16 live rows of one.
 BF16_ROWS = (128, 64, 32, 16)
 
-launch_counts = {"flash_attention": 0, "flash_attention_bf16": 0}
+launch_counts = tracing.launch_counts("flash_attention",
+                                      "flash_attention_bf16")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -56,11 +59,6 @@ _INT = ctypes.c_int
 # window, offset, warps (fp32) or rows (bf16), device, stream
 _ARGTYPES = [_P, _P, _P, _P] + [_I64] * 15 + [_INT, _I64, _I64, _INT, _INT,
                                               _P]
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def head_dim_class(hd: int) -> int:

@@ -27,7 +27,8 @@ of ``segment_sum`` and ``weighted_mean`` (``segment_sum_plan``,
 
 A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
-it never falls back.  ``launch_counts`` counts the launches, so a run can
+it never falls back.  ``launch_counts`` (held by
+``repro_torch.tracing``'s registry) counts the launches, so a run can
 show that its aggregation events went through the kernels; each launch
 also hands its cost (``*_cost``) to the running cost walks
 (``kernels.costs``).
@@ -38,6 +39,7 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, costs
 from repro_torch.launch.mesh import NUM_SMS
 
@@ -74,8 +76,8 @@ MEAN_MAX_SLICES = 32
 #: rows each.
 MIN_SLICE_ROWS = 64
 
-launch_counts = {"segment_aggregate": 0, "cloud_aggregate": 0,
-                 "segment_sum": 0, "weighted_mean": 0}
+launch_counts = tracing.launch_counts("segment_aggregate", "cloud_aggregate",
+                                      "segment_sum", "weighted_mean")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -98,11 +100,6 @@ _ARGTYPES = {
 #: nothing.  The port launches on one stream: two launches on two streams
 #: at once would share them.
 _scratch: dict = {}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _check(x, w, group_ids=None):

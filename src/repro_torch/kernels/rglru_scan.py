@@ -7,10 +7,10 @@ A wrapper takes the plain PyTorch version only for a tensor on the CPU.
 For a CUDA tensor it launches its kernel on the current stream or raises;
 it never falls back.  The kernel has no backward: on the card the wrapper
 raises on inputs that require grad and under ``torch.func`` transforms
-(``grad_guard``).  ``launch_counts`` counts the launches, so a run can
-show that its RG-LRU layers went through the kernel; each launch also
-hands its cost (``rglru_scan_cost``) to the running cost walks
-(``kernels.costs``).
+(``grad_guard``).  ``launch_counts`` (held by ``repro_torch.tracing``'s
+registry) counts the launches, so a run can show that its RG-LRU layers
+went through the kernel; each launch also hands its cost
+(``rglru_scan_cost``) to the running cost walks (``kernels.costs``).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build, costs
 from repro_torch.kernels.grad_guard import refuse_autograd
 from repro_torch.launch.mesh import NUM_SMS
@@ -31,18 +32,13 @@ TARGET_THREADS = NUM_SMS * 2048
 MIN_CHUNK = 64
 MAX_GRID_YZ = 65535            # CUDA's limit on grid.y and grid.z
 
-launch_counts = {"rglru_scan": 0}
+launch_counts = tracing.launch_counts("rglru_scan")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _INT, _INT,
              _P]
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def scan_chunks(batch: int, seq: int, channels: int) -> int:

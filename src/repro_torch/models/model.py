@@ -65,6 +65,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
@@ -265,7 +266,7 @@ class Model:
         """Full-prompt forward; returns (last_logits (B,1,V), decode_state).
         An encoder-decoder's prefill encodes the frames and decodes the
         prompt's first token (the reference feeds it no more)."""
-        with shd.on_mesh(self.mesh):
+        with tracing.span("model.prefill"), shd.on_mesh(self.mesh):
             return self._prefill(params, batch)
 
     def _prefill(self, params, batch):
@@ -346,7 +347,7 @@ class Model:
 
     def decode_step(self, params, state, tokens):
         """tokens: (B,1) -> (logits (B,1,V), new_state)."""
-        with shd.on_mesh(self.mesh):
+        with tracing.span("model.decode_step"), shd.on_mesh(self.mesh):
             return self._decode_step(params, state, tokens)
 
     def _decode_step(self, params, state, tokens):

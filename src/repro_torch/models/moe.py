@@ -52,6 +52,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS
 from repro_torch.models.layers import Spec, act_fn, matmul, promoted
 from repro_torch.parallel import sharding as shd
@@ -207,11 +208,20 @@ def _local_moe(cfg, p, x, expert_step, mesh=None, data_axes=(),
     C = _capacity(T, E, k, cfg.capacity_factor)
     # (unsplit, ``_route`` keeps the three-argument call that tests and
     # chip_smoke.py wrap to pin routes)
-    top_p, top_e, aux, z = (
-        _route(cfg, p["router"], xt) if split_axis is None
-        else _route(cfg, p["router"], xt, (mesh, split_axis)))
-    buf, dst, _ = _dispatch(xt, top_e, k, E, C)
-    y = _combine(expert_step(p, buf, E, C), dst, top_p, T, k)
+    with tracing.span("moe.route"):
+        top_p, top_e, aux, z = (
+            _route(cfg, p["router"], xt) if split_axis is None
+            else _route(cfg, p["router"], xt, (mesh, split_axis)))
+    with tracing.span("moe.dispatch"):
+        buf, dst, keep = _dispatch(xt, top_e, k, E, C)
+    # the capacity rows the products compute against the picks they keep
+    tracing.count("moe.rows_computed", E * C)
+    tracing.count("moe.picks", T * k)
+    tracing.count_true("moe.picks_kept", keep)
+    with tracing.span("moe.experts"):
+        out_buf = expert_step(p, buf, E, C)
+    with tracing.span("moe.combine"):
+        y = _combine(out_buf, dst, top_p, T, k)
     aux_total = cfg.router_aux_loss * aux + 1e-3 * z
     if data_axes:
         n = 1
@@ -293,15 +303,18 @@ def apply_moe(cfg, p, x, mesh=None, rules=None, shard_batch: bool = True):
     """MoE FFN.  Returns (y, aux_loss).  x: (B, S, d_model), a DTensor on
     ``mesh`` (see the module's docstring); ``shard_batch=False`` (the
     decode step's) routes the whole batch on every shard."""
-    if mesh is None:
-        y, aux = _local_moe(cfg, p, x, functools.partial(_expert_ffn, cfg))
-    else:
-        y, aux = _mesh_moe(cfg, p, x, mesh, rules or shd.DEFAULT_RULES,
-                           shard_batch)
-    if cfg.num_shared_experts > 0:
-        sp = p["shared"]
-        a = act_fn(cfg.act)
-        h = a(matmul(x, sp["wi_gate"])) * matmul(x, sp["wi_up"])
-        shared = shd.row_parallel(*promoted(h, sp["wo"]))
-        y = y + shared * torch.sigmoid(matmul(x, sp["gate"]))
-    return shd.settle(y), aux
+    with tracing.span("moe"):
+        if mesh is None:
+            y, aux = _local_moe(cfg, p, x,
+                                functools.partial(_expert_ffn, cfg))
+        else:
+            y, aux = _mesh_moe(cfg, p, x, mesh, rules or shd.DEFAULT_RULES,
+                               shard_batch)
+        if cfg.num_shared_experts > 0:
+            with tracing.span("moe.shared"):
+                sp = p["shared"]
+                a = act_fn(cfg.act)
+                h = a(matmul(x, sp["wi_gate"])) * matmul(x, sp["wi_up"])
+                shared = shd.row_parallel(*promoted(h, sp["wo"]))
+                y = y + shared * torch.sigmoid(matmul(x, sp["gate"]))
+        return shd.settle(y), aux

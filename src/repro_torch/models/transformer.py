@@ -40,6 +40,7 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
@@ -251,10 +252,11 @@ def prefill_block(cfg, kind, p, x, *, cache_len, impl="kernel",
         h, st = _xlstm(cfg, kind, p, x, impl)
         return x + h, st
     if kind in ("attn", "local_attn"):
-        h, st = attn.self_attention_prefill(
-            cfg, p["attn"], apply_norm(cfg, p["ln1"], x), causal=True,
-            window=_window(cfg, kind), impl=impl, cache_len=cache_len,
-            dtype=dtype, constrain=constrain)
+        with tracing.span("attn"):
+            h, st = attn.self_attention_prefill(
+                cfg, p["attn"], apply_norm(cfg, p["ln1"], x), causal=True,
+                window=_window(cfg, kind), impl=impl, cache_len=cache_len,
+                dtype=dtype, constrain=constrain)
     else:
         h, st = _rglru(cfg, p["rnn"], apply_norm(cfg, p["ln1"], x), impl,
                        return_state=True)
@@ -335,9 +337,10 @@ def decode_block(cfg, kind, p, x, state, *, impl="kernel", in_place=False,
                                 state)
         return x + h, state
     if kind in ("attn", "local_attn"):
-        h, state = attn.decode_self_attention(
-            cfg, p["attn"], apply_norm(cfg, p["ln1"], x), state,
-            window=_window(cfg, kind), impl=impl, in_place=in_place)
+        with tracing.span("attn"):
+            h, state = attn.decode_self_attention(
+                cfg, p["attn"], apply_norm(cfg, p["ln1"], x), state,
+                window=_window(cfg, kind), impl=impl, in_place=in_place)
     else:
         h, state = _batch_local(
             lambda x_, p_, s_: rec.rglru_decode_step(cfg, p_, x_, s_),
@@ -413,7 +416,8 @@ def decode_stack(cfg, p, x, state, *, impl="kernel", mesh=None, rules=None):
                                for k in states[0]}}
     if cfg.homogeneous:
         old = state["scanned"]
-        new = {k: old[k].clone() for k in ("k", "v", "slot_pos")}
+        with tracing.span("decode.cache_copy"):
+            new = {k: old[k].clone() for k in ("k", "v", "slot_pos")}
         for i in range(cfg.num_layers):
             ls = {k: t[i] for k, t in new.items()}
             ls["pos"] = old["pos"][i]

@@ -25,9 +25,10 @@ steps runs each trip, so there are no trip counts to resolve.
 * the hand-written kernels: launched through ``ctypes``, they are no aten
   op and no dispatch mode sees them.  Each wrapper hands the walk its
   launch's cost (``repro_torch.kernels.costs``; the reckoning of the
-  kernels' bounds), and the walk raises if a wrapper's ``launch_counts``
-  rose without a cost recorded.  The reference counts no FLOPs for its
-  Pallas custom calls; the port counts its kernels.
+  kernels' bounds), and the walk raises if a kernel's launch count
+  (``repro_torch.tracing.launches``) rose without a cost recorded.  The
+  reference counts no FLOPs for its Pallas custom calls; the port counts
+  its kernels.
 
 On the CPU the wrappers take their plain versions, which are aten ops and
 counted as such.
@@ -52,11 +53,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch import tracing
 from repro_torch.kernels import costs
-from repro_torch.kernels import decode_attention as _da
-from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import hier_aggregate as _ha
-from repro_torch.kernels import rglru_scan as _rs
 
 #: The reference's collective kinds, each reported (0 when none ran).
 COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -85,16 +83,6 @@ _COLL_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
 _FREE_OPS = {"_unsafe_view", "empty", "empty_like", "empty_strided",
              "new_empty", "new_empty_strided", "lift_fresh", "sym_size",
              "sym_stride", "sym_numel", "sym_storage_offset"}
-
-_COUNTERS = (_ha, _fa, _rs, _da)
-
-
-def _launch_counts() -> dict:
-    out = {}
-    for mod in _COUNTERS:
-        out.update(mod.launch_counts)
-    return out
-
 
 def _tensor_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
@@ -240,7 +228,7 @@ class CostWalk:
         k["bytes"] += nbytes
 
     def __enter__(self) -> "CostWalk":
-        self._before = _launch_counts()
+        self._before = tracing.launches()
         self._stack = contextlib.ExitStack()
         self._stack.enter_context(_pause_sharding_propagation())
         self._stack.enter_context(_FlopCounter(self))
@@ -253,9 +241,9 @@ class CostWalk:
         self._stack.close()
         if exc[0] is not None:
             return
-        after = _launch_counts()
+        after = tracing.launches()
         for name, n in after.items():
-            launched = n - self._before[name]
+            launched = n - self._before.get(name, 0)
             counted = (self.kernels.get(name, {}).get("launches", 0)
                        - self._fake.get(name, 0))
             if launched != counted:

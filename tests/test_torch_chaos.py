@@ -40,6 +40,7 @@ from repro.core import faults as j_f  # noqa: E402
 from repro.launch import service as js  # noqa: E402
 from repro_torch.core import faults as t_f  # noqa: E402
 from repro_torch.core import stochastic as t_st  # noqa: E402
+from repro_torch import tracing  # noqa: E402
 from repro_torch.kernels import hier_aggregate as ha  # noqa: E402
 from repro_torch.launch import service as ts  # noqa: E402
 
@@ -289,7 +290,7 @@ def test_streaming_merge_on_the_card():
     sim = ts.default_service_sim(sp.UES, sp.EDGES, max_staleness=sp.S_MAX,
                                  device="cuda")
     svc = ts.HFLService(sim, cfg)
-    ha.reset_launch_counts()
+    tracing.reset()
     svc.run(20)
     chunks = sum(-(-int((svc._gids == r["edge"]).sum()) // 4)
                  for r in svc.trace if r["kind"] in ("merge", "shed")) + \
